@@ -1,0 +1,116 @@
+"""The port on a CUDA device against the same port on the CPU (skipped
+without a card; run on the GPU host with ``--noconftest``, see README).
+No jax here: the GPU host has none.
+
+On CUDA, ``global_ba``'s landmark sums use ``index_add_``, which adds with
+atomics in an order that changes from run to run, and GEMMs reduce in
+another order than on the CPU; hence tolerances of float32 rounding
+amplified by one GN step, not equality."""
+
+import numpy as np
+import pytest
+import torch
+
+from visionx_slam_torch.data import synthetic
+from visionx_slam_torch.eval.trajectory import ate_of_run
+from visionx_slam_torch.models.global_ba import (
+    GlobalBAOptions,
+    global_ba,
+    map_reproj_error,
+)
+from visionx_slam_torch.models.orb_torch import orb_extract
+from visionx_slam_torch.ops import detect
+from visionx_slam_torch.ops.camera import make_camera
+from visionx_slam_torch.ops.se3 import matrix_to_quat, quat_mul, so3_exp
+from visionx_slam_torch.tracking.offline_pipeline import (
+    build_keyframe_map,
+    build_offline_pipeline,
+)
+from visionx_slam_torch.tracking.stages import sample_depth_image
+from visionx_slam_torch.utils.config import TrackingOptions
+
+from torch_parity import sequence, t
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def both_runs(cuda):
+    grays, depths, gt = sequence(16, 7)
+    cam = make_camera(synthetic.FX, synthetic.FY, synthetic.CX, synthetic.CY)
+    run = build_offline_pipeline(TrackingOptions(), kf_capacity=16)
+    out = {}
+    for dev in ("cpu", cuda):
+        ms, links, aux = run.pre(cam, t(grays).to(dev), t(depths).to(dev))
+        ms_r = run.refine(cam, ms)
+        out[str(dev)] = (ms, ms_r, run.post(cam, ms_r, aux)[1])
+    return cam, gt, out
+
+
+def test_pipeline_on_cuda_matches_cpu_band(both_runs):
+    cam, gt, out = both_runs
+    (_, _, o_c), (_, _, o_g) = out["cpu"], out["cuda"]
+    tr_c, tr_g = o_c.tracked.numpy(), o_g.tracked.cpu().numpy()
+    assert tr_c.sum() >= 15 and tr_g.sum() >= 15
+    # the two devices draw different RANSAC samples
+    assert (o_c.is_keyframe.numpy() == o_g.is_keyframe.cpu().numpy()).mean() >= 0.9
+    ate_c, _ = ate_of_run(o_c.pose.numpy(), tr_c, gt)
+    ate_g, _ = ate_of_run(o_g.pose.cpu().numpy(), tr_g, gt)
+    assert ate_g < 0.02 and abs(ate_g - ate_c) <= 0.005, (ate_c, ate_g)
+
+
+def _noisy_map():
+    """A keyframe map with multi-view links, built by the port on the CPU:
+    keyframes of a fast 16-frame sequence, ground-truth poses plus noise,
+    40% of feature depths dropped (as tests/test_torch_global_ba.py)."""
+    loop, frames = 60, [0, 3, 6, 9, 12, 15]
+    grays, depths, _ = sequence(16, 7, loop)
+    rng = np.random.default_rng(0)
+    px, _, desc, valid = orb_extract(t(grays[frames]))
+    dep = sample_depth_image(t(depths[frames]), px, valid)
+    dep = torch.where(t(rng.random(dep.shape) < 0.4), 0.0, dep)
+    qs, ts = [], []
+    for f in frames:
+        R_wc, t_wc = synthetic.trajectory_pose(f, 16, loop)
+        q = matrix_to_quat(t(R_wc.T.astype(np.float32)))
+        qs.append(quat_mul(so3_exp(t(rng.normal(0, 2e-3, 3).astype(np.float32))), q))
+        ts.append(t((-R_wc.T @ t_wc + rng.normal(0, 5e-3, 3)).astype(np.float32)))
+    cam = make_camera(synthetic.FX, synthetic.FY, synthetic.CX, synthetic.CY)
+    ids = torch.tensor(frames, dtype=torch.int32)
+    N = px.shape[1]
+    ms, links = build_keyframe_map(cam, TrackingOptions(), torch.stack(qs),
+                                   torch.stack(ts), ids, px, desc, valid, dep,
+                                   len(frames) * N)
+    assert int((links.adopter >= 0).sum()) > 200
+    return cam, ms
+
+
+def test_global_ba_on_cuda_matches_cpu(cuda):
+    """Two GN passes from the same CPU-built map on both devices."""
+    cam, ms = _noisy_map()
+    opts = GlobalBAOptions(max_iterations=2, cg_iterations=8)
+    r_c, s_c = global_ba(ms, cam, opts)
+    r_g, s_g = global_ba(type(ms)(*(x.to(cuda) for x in ms)), cam, opts)
+    assert (r_c.kf_t - ms.kf_t).abs().max() > 1e-3       # the solve moved
+    np.testing.assert_allclose(float(s_g.final_cost), float(s_c.final_cost),
+                               rtol=1e-4)
+    np.testing.assert_allclose(r_g.kf_q.cpu().numpy(), r_c.kf_q.numpy(), atol=1e-4)
+    np.testing.assert_allclose(r_g.kf_t.cpu().numpy(), r_c.kf_t.numpy(), atol=1e-4)
+    np.testing.assert_allclose(float(map_reproj_error(r_g, cam)[0]),
+                               float(map_reproj_error(r_c, cam)[0]), rtol=1e-3)
+
+
+def test_k1_launches_once_per_extract_chunk(cuda):
+    grays, depths, _ = sequence(16, 7)
+    cam = make_camera(synthetic.FX, synthetic.FY, synthetic.CX, synthetic.CY)
+    run = build_offline_pipeline(TrackingOptions(), kf_capacity=8, extract_chunk=5)
+    before = detect.launches
+    run.pre(cam, t(grays[:12]).to(cuda), t(depths[:12]).to(cuda))
+    assert detect.launches - before == 3     # chunks of 5, 5 and 2 frames

@@ -1,6 +1,10 @@
 """The port on a CUDA device against the same port on the CPU (skipped
 without a card; run on the GPU host with ``--noconftest``, see README).
-No jax here: the GPU host has none.
+No jax here: the GPU host has none. The ORB atlas (bit for bit), the
+offline pipeline, global BA, and the online scan: with depth holes
+(triangulation, local BA and compaction run), through a blackout (reset and
+re-initialization), and with the monocular option set (essential init,
+inherited landmarks).
 
 On CUDA, ``global_ba``'s landmark sums use ``index_add_``, which adds with
 atomics in an order that changes from run to run, and GEMMs reduce in
@@ -18,7 +22,7 @@ from visionx_slam_torch.models.global_ba import (
     global_ba,
     map_reproj_error,
 )
-from visionx_slam_torch.models.orb_torch import orb_extract
+from visionx_slam_torch.models.orb_torch import build_atlas, orb_extract
 from visionx_slam_torch.ops import detect
 from visionx_slam_torch.ops.camera import make_camera
 from visionx_slam_torch.ops.se3 import matrix_to_quat, quat_mul, so3_exp
@@ -26,6 +30,7 @@ from visionx_slam_torch.tracking.offline_pipeline import (
     build_keyframe_map,
     build_offline_pipeline,
 )
+from visionx_slam_torch.tracking.scan_pipeline import GOOD, run_scan_pipeline
 from visionx_slam_torch.tracking.stages import sample_depth_image
 from visionx_slam_torch.utils.config import TrackingOptions
 
@@ -107,6 +112,16 @@ def test_global_ba_on_cuda_matches_cpu(cuda):
                                float(map_reproj_error(r_c, cam)[0]), rtol=1e-3)
 
 
+def test_atlas_on_cuda_equals_cpu_bit_for_bit(cuda):
+    """The default bf16 pyramid sums in float64, exactly, so the card's
+    build equals the CPU's."""
+    grays, _, _ = sequence(4, 7)
+    a_c, m_c = build_atlas(t(grays))
+    a_g, m_g = build_atlas(t(grays).to(cuda))
+    assert torch.equal(a_g.cpu().view(torch.int16), a_c.view(torch.int16))
+    assert torch.equal(m_g.cpu(), m_c)
+
+
 def test_k1_launches_once_per_extract_chunk(cuda):
     grays, depths, _ = sequence(16, 7)
     cam = make_camera(synthetic.FX, synthetic.FY, synthetic.CX, synthetic.CY)
@@ -114,3 +129,61 @@ def test_k1_launches_once_per_extract_chunk(cuda):
     before = detect.launches
     run.pre(cam, t(grays[:12]).to(cuda), t(depths[:12]).to(cuda))
     assert detect.launches - before == 3     # chunks of 5, 5 and 2 frames
+
+
+def _scan(dev, grays, depths, opts, **kw):
+    cam = make_camera(synthetic.FX, synthetic.FY, synthetic.CX, synthetic.CY)
+    stats = {}
+    _, out = run_scan_pipeline(cam, grays, depths, opts, device=dev, stats=stats, **kw)
+    return out, stats
+
+
+def test_scan_on_cuda_matches_cpu_band(cuda):
+    """16 frames with a depth hole (the left 200 columns), a 4-slot ring and
+    a 6144-landmark table: both devices triangulate, run local BA and
+    compact; RANSAC draws differ between devices, so a band."""
+    grays, depths, gt = sequence(16, 7)
+    depths = depths.copy()
+    depths[:, :, :200] = 0.0
+    opts = TrackingOptions(ba_window_size=4)
+    kw = dict(kf_capacity=4, lm_capacity=6144)
+    o_c, s_c = _scan("cpu", grays, depths, opts, **kw)
+    before = detect.launches
+    o_g, s_g = _scan(cuda, grays, depths, opts, **kw)
+    assert detect.launches - before == 2          # two extract chunks of 8
+    tr_c, tr_g = o_c.tracked.numpy(), o_g.tracked.cpu().numpy()
+    assert tr_c.sum() >= 14 and tr_g.sum() >= 14
+    assert (o_c.is_keyframe.numpy() == o_g.is_keyframe.cpu().numpy()).mean() >= 0.9
+    ate_c, _ = ate_of_run(o_c.pose.numpy(), tr_c, gt)
+    ate_g, _ = ate_of_run(o_g.pose.cpu().numpy(), tr_g, gt)
+    assert ate_g < 0.02 and abs(ate_g - ate_c) <= 0.005, (ate_c, ate_g)
+    n_c, n_g = int(o_c.n_landmarks[-1]), int(o_g.n_landmarks[-1])
+    assert abs(n_g - n_c) <= 0.1 * n_c, (n_c, n_g)
+    assert s_g["compactions"] >= 1 and s_g["ba_iterations"] > 0, s_g
+
+
+def test_scan_recovers_from_garbage_frames_on_cuda(cuda):
+    grays, depths, _ = sequence(25, 11)
+    g = grays.copy()
+    g[10:13] = 0
+    out, _ = _scan(cuda, g, depths, TrackingOptions())
+    tracked, states = out.tracked.cpu().numpy(), out.state.cpu().numpy()
+    assert not tracked[11] and (states[10:14] != GOOD).any(), states
+    assert tracked[-3:].any() and states[-1] == GOOD, states
+
+
+def test_scan_with_monocular_options_runs_on_cuda(cuda):
+    """No depth, every 4th frame, the bench's monocular option set: the
+    essential-matrix init with the triangulation viability gate and
+    keyframes inheriting their matches' landmarks."""
+    grays, depths, _ = sequence(64, 7)
+    g = grays[::4]
+    d = np.zeros_like(depths[::4])
+    opts = TrackingOptions(link_tracked_landmarks=True, min_init_landmarks=25)
+    out, stats = _scan(cuda, g, d, opts, kf_capacity=8, lm_capacity=16384)
+    assert np.isfinite(out.pose.cpu().numpy()).all()
+    # the frame that initializes depends on the RANSAC draws, which differ
+    # between devices; the map it starts holds two-view landmarks, so
+    # local BA has work
+    assert bool(out.tracked.any()) and int(out.is_keyframe.sum()) >= 1, stats
+    assert stats["ba_iterations"] > 0, stats

@@ -1,6 +1,7 @@
 """K1's plain PyTorch version against the JAX package's detector — the
 Pallas kernel in interpret mode and the XLA path — and the CUDA kernel
-against the plain version on the card (skipped without one).
+against the plain version on the card (skipped without one); likewise the
+score-only wrapper K1b (``fast_harris_score``).
 
 Tolerances are those of tests/test_pallas_detect.py: corner-mask agreement
 > 0.99 inside the detection border; score rtol 2e-2, atol 20 (the kernels
@@ -163,6 +164,38 @@ def test_wrapper_checks_its_inputs():
     s, b = detect.fast_harris_blur(img16, mask)   # CPU: plain version
     assert s.shape == (1, 40, 48) and b.dtype == torch.bfloat16
     assert detect.launches == before              # no kernel launch on CPU
+
+
+def test_score_plain_matches_pallas_interpret(jx, img):
+    """K1b's plain version against ``pallas_detect.fast_harris_score`` in
+    interpret mode (as tests/test_pallas_detect.py runs it), and the CPU
+    wrapper takes the plain version without a launch."""
+    s_t = to_np(detect.fast_harris_score_reference(t(img)))
+    with jx.pltpu.force_tpu_interpret_mode():
+        s_p = np.asarray(jx.PD.fast_harris_score(jx.jnp.asarray(img), 20.0))
+    assert s_t.shape == img.shape
+    _check(s_t, s_p, s_p > 0.5 * jx.PD.NEG)
+    before = (detect.launches, detect.score_launches)
+    s_w = detect.fast_harris_score(t(img)[None])
+    assert (detect.launches, detect.score_launches) == before
+    np.testing.assert_array_equal(to_np(s_w[0]), s_t)
+    with pytest.raises(ValueError):
+        detect.fast_harris_score(t(img).to(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_cuda_score_kernel_matches_plain(img, atlas):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1b launches K1, which has no CPU mode)")
+    for x in (atlas[0].float(), t(img)[None], t(img)):
+        x = x.cuda()
+        before = detect.score_launches
+        s_k = detect.fast_harris_score(x)
+        assert detect.score_launches == before + 1
+        s_p = detect.fast_harris_score_reference(x)
+        assert s_k.shape == x.shape
+        k, p = to_np(s_k.reshape(-1, *x.shape[-2:])[0]), to_np(s_p.reshape(-1, *x.shape[-2:])[0])
+        _check(k, p, p > 0.5 * detect.NEG, b=8)
 
 
 @pytest.mark.cuda

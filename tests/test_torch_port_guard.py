@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither jax, cv2 nor
-``visionx_slam_tpu`` (the GPU host has no jax and no cv2), and its
+``visionx_slam_tpu`` (the GPU host has no jax and no cv2) — every module,
+and the offline pipeline and the online scan run end to end — and its
 in-memory sequence is bit-for-bit the one the bench loads from PNGs."""
 
 import subprocess
@@ -16,15 +17,24 @@ for name in ("jax", "jaxlib", "cv2", "visionx_slam_tpu"):
 import visionx_slam_torch
 for m in pkgutil.walk_packages(visionx_slam_torch.__path__, "visionx_slam_torch."):
     importlib.import_module(m.name)
+from visionx_slam_torch import convert
 from visionx_slam_torch.data import synthetic
 from visionx_slam_torch.eval.trajectory import ate_of_run
+from visionx_slam_torch.models import estimation, local_ba, matching, orb_torch
+from visionx_slam_torch.ops import detect, linalg
 from visionx_slam_torch.ops.camera import make_camera
+from visionx_slam_torch.tracking import mapstate, scan_pipeline, stages
 from visionx_slam_torch.tracking.offline_pipeline import run_offline_pipeline
+from visionx_slam_torch.tracking.scan_pipeline import run_scan_pipeline
 from visionx_slam_torch.utils.config import TrackingOptions
 g, d, gt = synthetic.make_sequence(4)
 cam = make_camera(synthetic.FX, synthetic.FY, synthetic.CX, synthetic.CY)
 ms, out = run_offline_pipeline(cam, g, d, TrackingOptions(), device="cpu",
                                kf_capacity=4)
+ate, n = ate_of_run(out.pose.numpy(), out.tracked.numpy(), gt)
+assert n == 4 and ate < 0.02, (n, ate)
+st, out = run_scan_pipeline(cam, g, d, TrackingOptions(), device="cpu",
+                            kf_capacity=8, lm_capacity=8192)
 ate, n = ate_of_run(out.pose.numpy(), out.tracked.numpy(), gt)
 assert n == 4 and ate < 0.02, (n, ate)
 loaded = [m for m in ("jax", "cv2", "visionx_slam_tpu") if sys.modules.get(m)]

@@ -21,13 +21,18 @@ from .models.orb_torch import (
     _level_quotas,
     brief_pattern,
 )
+from .models.matching import MatchResult
 from .ops.camera import CameraParams, make_camera
+from .ops.se3 import Pose
 from .tracking.mapstate import MapState
+from .tracking.scan_pipeline import ScanState
+from .tracking.stages import FrameObs
 
 __all__ = [
     "FAST_CIRCLE", "_atlas_layout", "_brief_bank", "_gaussian_kernel1d",
     "_level_quotas", "brief_pattern", "camera_from_numpy",
-    "mapstate_from_numpy", "mapstate_to_numpy",
+    "frameobs_from_numpy", "mapstate_from_numpy", "mapstate_to_numpy",
+    "match_from_numpy", "pose_from_numpy", "scanstate_from_numpy",
 ]
 
 
@@ -44,6 +49,53 @@ def mapstate_from_numpy(ms, device="cpu") -> MapState:
     dev = torch.device(device)
     return MapState(*(torch.as_tensor(np.array(getattr(ms, f))).to(dev)
                       for f in MapState._fields))
+
+
+def _tensor(x, device, dtype=None) -> torch.Tensor:
+    out = torch.as_tensor(np.array(x)).to(device)
+    return out if dtype is None else out.to(dtype)
+
+
+def pose_from_numpy(pose, device="cpu") -> Pose:
+    return Pose(_tensor(pose.q, device), _tensor(pose.t, device))
+
+
+def frameobs_from_numpy(obs, device="cpu") -> FrameObs:
+    return FrameObs(*(_tensor(getattr(obs, f), device) for f in FrameObs._fields))
+
+
+def match_from_numpy(res, device="cpu") -> MatchResult:
+    """A match table; indices widen to int64."""
+    return MatchResult(_tensor(res.idx, device, torch.long),
+                       _tensor(res.dist, device), _tensor(res.valid, device))
+
+
+def scanstate_from_numpy(st, device="cpu") -> ScanState:
+    """A port ``ScanState`` from the JAX package's: the state-machine
+    scalars become host numbers, ``kf_cursor`` is read from the map's
+    ``next_kf``, and the int8 bit planes become bf16 (both hold 0/1)."""
+    host = lambda x: np.asarray(x).item()
+    return ScanState(
+        ms=mapstate_from_numpy(st.ms, device),
+        tstate=int(host(st.tstate)), have_init=bool(host(st.have_init)),
+        init_obs=frameobs_from_numpy(st.init_obs, device),
+        init_frame_id=int(host(st.init_frame_id)),
+        init_kf_slot=int(host(st.init_kf_slot)),
+        last_obs=frameobs_from_numpy(st.last_obs, device),
+        last_pose=pose_from_numpy(st.last_pose, device),
+        cur_pose=pose_from_numpy(st.cur_pose, device),
+        last_kf_slot=int(host(st.last_kf_slot)),
+        last_kf_id=int(host(st.last_kf_id)),
+        last_inliers=int(host(st.last_inliers)),
+        last_parallax=float(host(st.last_parallax)),
+        kf_bits=_tensor(st.kf_bits, device, torch.bfloat16),
+        kf_pop=_tensor(st.kf_pop, device),
+        kf_fvalid=_tensor(st.kf_fvalid, device),
+        kf_lm_pts=_tensor(st.kf_lm_pts, device),
+        kf_lm_valid=_tensor(st.kf_lm_valid, device),
+        kf_px2=_tensor(st.kf_px2, device),
+        kf_cursor=int(host(st.ms.next_kf)),
+    )
 
 
 def mapstate_to_numpy(ms: MapState) -> dict:

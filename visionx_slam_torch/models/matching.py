@@ -44,6 +44,33 @@ def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
     return a.sum(-1)[..., :, None] + b.sum(-1)[..., None, :] - 2.0 * dot
 
 
+def unpack_with_pop(desc_u8: torch.Tensor):
+    """(bit planes bf16 [..., 256], popcounts f32 [...]) of descriptors. The
+    scan computes these once per frame, ahead of its serial loop, and
+    carries the reference keyframe's copy. bf16 holds 0/1 exactly, and every
+    inner product of two planes is an integer <= 256, exact in bf16 too."""
+    bits = unpack_bits(desc_u8)
+    return bits.to(torch.bfloat16), bits.sum(-1)
+
+
+def knn2_from_bits(bits_a: torch.Tensor, pop_a: torch.Tensor,
+                   valid_a: torch.Tensor, bits_b: torch.Tensor,
+                   pop_b: torch.Tensor, valid_b: torch.Tensor,
+                   nn_ratio: float = NN_RATIO) -> MatchResult:
+    """``knn2_ratio_match`` on pre-unpacked bit planes (bit-identical)."""
+    dot = (bits_a @ bits_b.transpose(-1, -2)).float()
+    D = pop_a[..., :, None] + pop_b[..., None, :] - 2.0 * dot
+    return _knn2_select(D, valid_a, valid_b, nn_ratio)
+
+
+def knn2_ratio_match(desc_a: torch.Tensor, valid_a: torch.Tensor,
+                     desc_b: torch.Tensor, valid_b: torch.Tensor,
+                     nn_ratio: float = NN_RATIO) -> MatchResult:
+    """2-NN + Lowe ratio matching, without the distance filter."""
+    return _knn2_select(hamming_matrix(desc_a, desc_b), valid_a, valid_b,
+                        nn_ratio)
+
+
 def _knn2_select(D: torch.Tensor, valid_a: torch.Tensor,
                  valid_b: torch.Tensor, nn_ratio: float) -> MatchResult:
     """Top-2 + ratio selection over a distance matrix [..., N, M]."""
@@ -70,5 +97,5 @@ def match_frames(desc_a: torch.Tensor, valid_a: torch.Tensor,
                  nn_ratio: float = NN_RATIO) -> MatchResult:
     """knn2 ratio match + the reference distance filter, batched over
     leading dims: desc [..., N, 32] uint8, valid [..., N] bool."""
-    D = hamming_matrix(desc_a, desc_b)
-    return reference_distance_filter(_knn2_select(D, valid_a, valid_b, nn_ratio))
+    return reference_distance_filter(
+        knn2_ratio_match(desc_a, valid_a, desc_b, valid_b, nn_ratio))

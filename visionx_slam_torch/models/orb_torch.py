@@ -6,10 +6,24 @@ same defaults (1000 features, scale 1.2, 8 levels, 1024 slots, FAST
 threshold 20, border 31) and the same numpy tables (copied here: the JAX
 module imports jax). Batched over frames: ``gray_u8`` is [B,H,W].
 
+The pyramid equals the JAX package's bit for bit. Each level is
+``jax.image.resize(method="linear")`` on downscale, which is two dense
+products with antialiased triangle-kernel weight matrices
+(``resize_weights``, a numpy copy of JAX's construction). In the default
+(``resize_f32=0``, the JAX default) the image is bf16 and so are the
+weights: the height pass is rounded to bf16, then the width pass. Each
+product of a bf16 weight with a bf16 value has at most 16 significant
+bits, but a sum of them can span more than float32's 24 (a small tail
+weight times a small value next to a large product), so a float32 sum
+depends on its order. The default build therefore sums in float64, where
+every such sum of this pyramid (under 52 bits from the largest product to
+the smallest bit) is exact in any order, then rounds through float32 to
+bf16: CPU and CUDA give the same bits. JAX's float32 sums equal the exact
+sum after that rounding on the rendered test frames (tests/test_torch_orb.py).
+``resize_f32=1`` (the JAX package's option of that name) keeps both passes
+in float32 with float32 weights and rounds the level once.
+
 Differences from the JAX path, none of which changes a value:
-- the pyramid is resized in float32 (antialiased bilinear, which is what
-  ``jax.image.resize(method="linear")`` does on downscale) and cast to bf16
-  once;
 - detection runs K1 over the whole [B, atlas_rows, W] chunk at once;
 - patches are gathered directly (the space-to-depth + one-hot einsums of
   the JAX path only served the TPU) and BRIEF gathers the rotated sample
@@ -24,13 +38,12 @@ import math
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..ops.detect import FAST_CIRCLE, NEG, _gaussian_kernel1d, fast_harris_blur
 from ..ops.index import stable_argsort, stable_topk
 
 __all__ = ["FAST_CIRCLE", "_gaussian_kernel1d", "brief_pattern", "build_atlas",
-           "orb_extract"]
+           "orb_extract", "resize_weights"]
 
 HALF_PATCH = 15          # orientation disc radius
 BRIEF_RADIUS = 13        # pattern points live in [-13, 13]
@@ -142,22 +155,70 @@ def _device_tables(H, W, n_levels, scale_factor, border, device):
             torch.from_numpy(minus).to(dev))
 
 
+@functools.lru_cache(maxsize=64)
+def resize_weights(in_size: int, out_size: int) -> np.ndarray:
+    """[out, in] float32 weights of ``jax.image.resize(method="linear")``
+    along one axis on downscale: half-pixel centres, a triangle kernel
+    widened by the scale (antialiasing), columns normalized to sum 1, zero
+    where the sample falls outside the input
+    (``jax/_src/image/scale.py::compute_weight_mat``).
+
+    The float32 steps follow what XLA's CPU compiler makes of that code:
+    the sample position as one fused multiply-add, the division by the
+    kernel scale as a product with its reciprocal. A few weights still
+    differ from JAX's in their last float32 bit (summation order); rounded
+    to bf16, as the default pyramid uses them, every weight of every level
+    of a 640x480 pyramid is equal (tests/test_torch_orb.py)."""
+    f32 = np.float32
+    inv_scale = 1.0 / (out_size / in_size)     # a Python float in JAX too
+    kernel_scale = f32(max(inv_scale, 1.0))
+    a = np.arange(out_size, dtype=np.float64) + 0.5
+    sample_f = (a * np.float64(f32(inv_scale)) - 0.5).astype(f32)
+    x = (np.abs(sample_f[None, :] - np.arange(in_size, dtype=f32)[:, None])
+         * (f32(1.0) / kernel_scale))
+    w = np.maximum(f32(0.0), f32(1.0) - x)
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > f32(1000.0 * np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).T.astype(f32)
+
+
+@functools.lru_cache(maxsize=16)
+def _resize_mats(H, W, n_levels, scale_factor, border, resize_f32, device):
+    """Per level > 0: (height weights [h,H], width weights transposed
+    [W,w]) on the device, bf16-rounded unless ``resize_f32``."""
+    place, _, _ = _atlas_layout(H, W, n_levels, scale_factor, border)
+    dev = torch.device(device)
+    out = []
+    for (_, _, h, w) in place[1:]:
+        mats = [torch.from_numpy(resize_weights(H, h)),
+                torch.from_numpy(resize_weights(W, w)).T.contiguous()]
+        if not resize_f32:
+            mats = [m.to(torch.bfloat16).double() for m in mats]
+        out.append(tuple(m.to(dev) for m in mats))
+    return out
+
+
 def build_atlas(gray_u8: torch.Tensor, scale_factor: float = 1.2,
-                n_levels: int = 8, border: int = 31):
+                n_levels: int = 8, border: int = 31, resize_f32: int = 0):
     """The shelf-packed pyramid atlas of a batch of frames and its border
-    mask: (atlas bf16 [B,rows,W], mask int8 [rows,W]) — K1's inputs. Levels
-    are resized in f32 (antialiased bilinear) and cast to bf16 once."""
+    mask: (atlas bf16 [B,rows,W], mask int8 [rows,W]) — K1's inputs."""
     B, H, W = gray_u8.shape
     dev = gray_u8.device
     place, total_rows, _ = _atlas_layout(H, W, n_levels, scale_factor, border)
     mask = _device_tables(H, W, n_levels, scale_factor, border, str(dev))[0]
-    img0 = gray_u8.float()[:, None]
+    mats = _resize_mats(H, W, n_levels, scale_factor, border, bool(resize_f32),
+                        str(dev))
+    img0 = gray_u8.float() if resize_f32 else gray_u8.double()
     atlas = torch.zeros((B, total_rows, W), dtype=torch.bfloat16, device=dev)
-    for lvl, (oy, ox, h, w) in enumerate(place):
-        lv = img0 if lvl == 0 else F.interpolate(
-            img0, size=(h, w), mode="bilinear", antialias=True,
-            align_corners=False)
-        atlas[:, oy:oy + h, ox:ox + w] = lv[:, 0].to(torch.bfloat16)
+    oy, ox, _, _ = place[0]
+    atlas[:, oy:oy + H, ox:ox + W] = img0.to(torch.bfloat16)
+    for (oy, ox, h, w), (Wh, WwT) in zip(place[1:], mats):
+        rows = Wh @ img0                                   # [B,h,W]
+        if not resize_f32:   # exact float64 sums, rounded as JAX rounds
+            rows = rows.float().to(torch.bfloat16).double()
+        atlas[:, oy:oy + h, ox:ox + w] = (rows @ WwT).float().to(torch.bfloat16)
     return atlas, mask
 
 
@@ -169,6 +230,7 @@ def orb_extract(
     n_slots: int = 1024,
     fast_threshold: float = 20.0,
     border: int = 31,
+    resize_f32: int = 0,
 ):
     """Full ORB: returns (px [B,S,2] level-0 pixels (x, y), resp [B,S],
     desc [B,S,32] uint8, valid [B,S]) with S = n_slots."""
@@ -178,7 +240,7 @@ def orb_extract(
     place, total_rows, _ = _atlas_layout(H, W, n_levels, scale_factor, border)
     _, wxy, brief_plus, brief_minus = _device_tables(
         H, W, n_levels, scale_factor, border, str(dev))
-    atlas, mask = build_atlas(gray_u8, scale_factor, n_levels, border)
+    atlas, mask = build_atlas(gray_u8, scale_factor, n_levels, border, resize_f32)
 
     # ---- dense passes: K1 on the whole chunk ----
     raw, blurred = fast_harris_blur(atlas, mask, fast_threshold)

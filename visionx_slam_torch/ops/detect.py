@@ -11,7 +11,10 @@ intermediate kept in shared memory:
 - ``blur`` bf16 [B,H,W]: the 7-tap Gaussian blur the BRIEF patches sample.
 
 ``fast_harris_blur`` runs the plain version for a CPU tensor and launches K1
-for a CUDA tensor; there is no fallback between the two. K1 is compiled
+for a CUDA tensor; there is no fallback between the two. ``fast_harris_score``
+(K1b, counterpart of ``pallas_detect.fast_harris_score``) is the
+detection-only wrapper over the same kernel: a float32 image cast to bf16,
+an all-ones mask, the score alone. K1 is compiled
 with ``nvcc`` from the repo's source at first use into ``build/`` and bound
 through a plain C interface with ``ctypes``.
 """
@@ -47,7 +50,8 @@ _PKG = Path(__file__).resolve().parents[1]
 _SOURCE = _PKG / "csrc" / "fast_harris_blur.cu"
 _BUILD_DIR = _PKG / "build"
 
-launches = 0  # kernel launches since import (or the last reset by a caller)
+launches = 0        # K1 launches since import (or the last reset by a caller)
+score_launches = 0  # K1b (fast_harris_score) launches, likewise
 
 
 def _gaussian_kernel1d(size: int = 7, sigma: float = 2.0) -> np.ndarray:
@@ -224,3 +228,33 @@ def fast_harris_blur_reference(img16: torch.Tensor, mask: torch.Tensor,
         term = w * racc[:, :, k:k + W]
         blur = term if blur is None else blur + term
     return score, blur
+
+
+def _score_inputs(img: torch.Tensor):
+    if img.dim() not in (2, 3) or not img.is_floating_point():
+        raise ValueError(f"img must be a float [H,W] or [B,H,W] image, got "
+                         f"{img.dtype} {tuple(img.shape)}")
+    x = (img[None] if img.dim() == 2 else img).to(torch.bfloat16).contiguous()
+    mask = torch.ones(x.shape[1:], dtype=torch.int8, device=x.device)
+    return x, mask
+
+
+def fast_harris_score(img: torch.Tensor, threshold: float = 20.0) -> torch.Tensor:
+    """K1b: FAST + Harris + NMS score of a float image [H,W] or [B,H,W]
+    (cast to bf16), no border mask (callers mask downstream); f32 score of
+    the input's shape, ``NEG`` off-corner. Launches K1 for a CUDA tensor,
+    runs the plain version for a CPU one."""
+    global score_launches
+    x, mask = _score_inputs(img)
+    score, _ = fast_harris_blur(x, mask, threshold)
+    if x.device.type == "cuda":
+        score_launches += 1
+    return score[0] if img.dim() == 2 else score
+
+
+def fast_harris_score_reference(img: torch.Tensor,
+                                threshold: float = 20.0) -> torch.Tensor:
+    """The plain PyTorch version of K1b."""
+    x, mask = _score_inputs(img)
+    score, _ = fast_harris_blur_reference(x, mask, threshold)
+    return score[0] if img.dim() == 2 else score

@@ -6,7 +6,10 @@ Same conventions as the JAX package (and Sophus):
 - the se(3) tangent is ``xi = [upsilon(3), omega(3)]``, translation first;
 - ``se3_exp`` uses the left Jacobian V; the BA retraction is ``exp(dx) * T``.
 
-Every function broadcasts over leading batch dimensions.
+Every function broadcasts over leading batch dimensions. Constants are made
+on the device (``zeros`` and fills), never copied from the host: a host copy
+synchronizes a CUDA stream, and these functions run in the scan's per-frame
+loop.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ class Pose(NamedTuple):
 
 def identity_pose(batch_shape=(), dtype=torch.float32, device=None) -> Pose:
     q = torch.zeros((*batch_shape, 4), dtype=dtype, device=device)
-    q[..., 0] = 1.0
+    q[..., 0].fill_(1.0)
     return Pose(q, torch.zeros((*batch_shape, 3), dtype=dtype, device=device))
 
 
@@ -46,7 +49,7 @@ def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:
@@ -172,5 +175,6 @@ def se3_matrix(T: Pose) -> torch.Tensor:
     """Pose -> homogeneous [...,4,4]."""
     R = quat_to_matrix(T.q)
     top = torch.cat([R, T.t[..., :, None]], dim=-1)
-    bottom = R.new_tensor([0.0, 0, 0, 1.0]).expand(*top.shape[:-2], 1, 4)
+    bottom = torch.zeros_like(top[..., :1, :])
+    bottom[..., 3].fill_(1.0)
     return torch.cat([top, bottom], dim=-2)

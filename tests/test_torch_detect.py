@@ -5,7 +5,11 @@ score-only wrapper K1b (``fast_harris_score``).
 
 Tolerances are those of tests/test_pallas_detect.py: corner-mask agreement
 > 0.99 inside the detection border; score rtol 2e-2, atol 20 (the kernels
-associate the bf16 box sums differently); blur rtol 2e-2, atol 2.
+associate the bf16 box sums differently); blur rtol 2e-2, atol 2. On the
+card the kernels must equal their plain versions bit for bit, at the
+rendered 8-frame atlas and at the edge shapes of ``k1_bench.EDGE_SHAPES``
+(odd W, H below one row band, one row past a band); the plain version is
+held to the Pallas kernel at those edge shapes on the CPU.
 
 The JAX package is imported by a fixture, not at module level, so that the
 CUDA test also runs on a GPU host without jax (see README: it runs there
@@ -20,6 +24,7 @@ import torch
 
 from visionx_slam_torch.models.orb_torch import build_atlas
 from visionx_slam_torch.ops import detect
+from visionx_slam_torch.tools import k1_bench
 
 from torch_parity import sequence, t, to_np
 
@@ -61,16 +66,20 @@ def _plain(img16: torch.Tensor, mask: torch.Tensor):
     return to_np(s[0]), to_np(b[0].float())
 
 
-def _check(score_t, score_r, ok_r, blur_t=None, blur_r=None, b=B):
-    st, sr = score_t[b:-b, b:-b], score_r[b:-b, b:-b]
-    mt, mr = st > 0.5 * detect.NEG, ok_r[b:-b, b:-b]
+def _inner(a, b):
+    return a[b:a.shape[0] - b, b:a.shape[1] - b]
+
+
+def _check(score_t, score_r, ok_r, blur_t=None, blur_r=None, b=B, bb=8):
+    st, sr = _inner(score_t, b), _inner(score_r, b)
+    mt, mr = st > 0.5 * detect.NEG, _inner(ok_r, b)
     agree = (mt == mr).mean()
     assert agree > 0.99, f"corner mask agreement {agree:.4f}"
     both = mt & mr
     assert both.sum() > 20
     np.testing.assert_allclose(st[both], sr[both], rtol=2e-2, atol=20.0)
     if blur_t is not None:
-        np.testing.assert_allclose(blur_t[8:-8, 8:-8], blur_r[8:-8, 8:-8],
+        np.testing.assert_allclose(_inner(blur_t, bb), _inner(blur_r, bb),
                                    rtol=2e-2, atol=2.0)
 
 
@@ -151,6 +160,38 @@ def test_plain_matches_xla_path(jx, source, img, atlas):
     _check(s_t, s_x, c_x, b_t, np.asarray(blur_x))
 
 
+def _plain_batch(img16, mask):
+    s, b = detect.fast_harris_blur_reference(img16, mask)
+    return to_np(s), to_np(b.float())
+
+
+@pytest.mark.parametrize("shape", k1_bench.EDGE_SHAPES, ids=str)
+def test_plain_matches_pallas_interpret_edge_shapes(jx, shape):
+    """At the shapes the kernel's tiling must get right (numpy-seeded noise
+    and a random border mask), every frame of the plain version against the
+    Pallas kernel in interpret mode, both edge-padded: borders included."""
+    img16, mask, _ = k1_bench.edge_inputs(shape, k1_bench.EDGE_SHAPES.index(shape))
+    s_t, b_t = _plain_batch(img16, mask)
+    for f in range(shape[0]):
+        with jx.pltpu.force_tpu_interpret_mode():
+            s_p, b_p = jx.PD.fast_harris_blur(
+                *_jax_inputs(jx, to_np(img16[f].float()), to_np(mask)), 20.0)
+        s_p = np.asarray(s_p)
+        _check(s_t[f], s_p, s_p > 0.5 * jx.PD.NEG, b_t[f],
+               np.asarray(b_p.astype(jx.jnp.float32)), b=0, bb=0)
+
+
+def test_score_plain_matches_pallas_interpret_2d(jx):
+    """K1b's plain version on a 2-D float32 image that is not bf16-exact
+    against ``pallas_detect.fast_harris_score`` in interpret mode."""
+    _, _, img32 = k1_bench.edge_inputs(k1_bench.EDGE_SHAPES[0], 0)
+    s_t = to_np(detect.fast_harris_score_reference(img32[0]))
+    with jx.pltpu.force_tpu_interpret_mode():
+        s_p = np.asarray(jx.PD.fast_harris_score(jx.jnp.asarray(to_np(img32[0])), 20.0))
+    assert s_t.shape == s_p.shape == tuple(img32.shape[1:])
+    _check(s_t, s_p, s_p > 0.5 * jx.PD.NEG, b=0)
+
+
 def test_wrapper_checks_its_inputs():
     img16 = torch.zeros((1, 40, 48), dtype=torch.bfloat16)
     mask = torch.ones((40, 48), dtype=torch.int8)
@@ -183,32 +224,44 @@ def test_score_plain_matches_pallas_interpret(jx, img):
         detect.fast_harris_score(t(img).to(torch.uint8))
 
 
-@pytest.mark.cuda
-def test_cuda_score_kernel_matches_plain(img, atlas):
+@pytest.fixture(scope="module")
+def cuda_cases():
+    """The exact-check cases on the card: the rendered 8-frame atlas of the
+    main path's chunk, [8,1896,640], and the edge shapes."""
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (K1b launches K1, which has no CPU mode)")
-    for x in (atlas[0].float(), t(img)[None], t(img)):
-        x = x.cuda()
-        before = detect.score_launches
+        pytest.skip("needs a CUDA device (K1 and K1b have no CPU mode)")
+    grays, _, _ = sequence(8, 5)
+    return k1_bench.exact_cases(*build_atlas(t(grays).cuda()))
+
+
+@pytest.mark.cuda
+def test_cuda_score_kernel_matches_plain(img, cuda_cases):
+    """K1b equals its plain version bit for bit, in one launch per call."""
+    for name, x in cuda_cases[1] + [("image", t(img).cuda()), ("image 3-D", t(img)[None].cuda())]:
+        before = (detect.launches, detect.score_launches)
         s_k = detect.fast_harris_score(x)
-        assert detect.score_launches == before + 1
+        assert (detect.launches, detect.score_launches) == (before[0], before[1] + 1)
         s_p = detect.fast_harris_score_reference(x)
-        assert s_k.shape == x.shape
+        assert s_k.shape == x.shape, name
+        assert torch.equal(s_k.view(torch.int32), s_p.view(torch.int32)), name
         k, p = to_np(s_k.reshape(-1, *x.shape[-2:])[0]), to_np(s_p.reshape(-1, *x.shape[-2:])[0])
-        _check(k, p, p > 0.5 * detect.NEG, b=8)
+        if min(k.shape) > 64:
+            _check(k, p, p > 0.5 * detect.NEG, b=8)
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_matches_plain(img, atlas):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (K1 has no CPU mode)")
-    a16, mask = atlas
-    for x, m in [(a16, mask),
-                 (t(img).to(torch.bfloat16)[None], torch.ones(img.shape, dtype=torch.int8))]:
-        x, m = x.cuda().contiguous(), m.cuda().contiguous()
+def test_cuda_kernel_matches_plain(img, cuda_cases):
+    """K1 equals its plain version bit for bit: score as f32 bits, blur as
+    bf16 bits."""
+    image = ("image", t(img).to(torch.bfloat16)[None].cuda(),
+             torch.ones(img.shape, dtype=torch.int8).cuda())
+    for name, x, m in cuda_cases[0] + [image]:
         before = detect.launches
         s_k, b_k = detect.fast_harris_blur(x, m)
         assert detect.launches == before + 1
         s_p, b_p = detect.fast_harris_blur_reference(x, m)
-        _check(to_np(s_k[0]), to_np(s_p[0]), to_np(s_p[0]) > 0.5 * detect.NEG,
-               to_np(b_k[0].float()), to_np(b_p[0].float()))
+        assert torch.equal(s_k.view(torch.int32), s_p.view(torch.int32)), name
+        assert torch.equal(b_k.view(torch.int16), b_p.view(torch.int16)), name
+        if min(x.shape[1:]) > 64:
+            _check(to_np(s_k[0]), to_np(s_p[0]), to_np(s_p[0]) > 0.5 * detect.NEG,
+                   to_np(b_k[0].float()), to_np(b_p[0].float()))

@@ -6,9 +6,9 @@ is the reference every module here is tested against. This package imports
 neither jax nor cv2 nor ``visionx_slam_tpu``.
 
 Functions take tensors with explicit batch dimensions; the device is the
-device of the tensors (entry points take a ``device`` argument). The one
-hand-written kernel, K1 (``csrc/fast_harris_blur.cu``), is built with nvcc at
-first use.
+device of the tensors (entry points take a ``device`` argument). The
+hand-written kernels, K1 and its score-only form K1b
+(``csrc/fast_harris_blur.cu``), are built with nvcc at first use.
 """
 
 __version__ = "0.1.0"

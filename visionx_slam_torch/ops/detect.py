@@ -1,10 +1,10 @@
-"""Fused FAST-9 + Harris + NMS + border mask + blur: kernel K1 and its plain
-PyTorch version.
+"""Fused FAST-9 + Harris + NMS + border mask + blur: kernel K1, its
+score-only form K1b, and their plain PyTorch versions.
 
 Counterpart of ``visionx_slam_tpu/ops/pallas_detect.py``. The detection
 stage of ORB is ~50 stencil passes over the pyramid atlas; kernel K1
 (``csrc/fast_harris_blur.cu``) computes both outputs in one pass with every
-intermediate kept in shared memory:
+intermediate kept in registers:
 
 - ``score`` f32 [B,H,W]: Harris response where (FAST corner & 3x3 NMS winner
   & border mask), else ``NEG``;
@@ -13,10 +13,10 @@ intermediate kept in shared memory:
 ``fast_harris_blur`` runs the plain version for a CPU tensor and launches K1
 for a CUDA tensor; there is no fallback between the two. ``fast_harris_score``
 (K1b, counterpart of ``pallas_detect.fast_harris_score``) is the
-detection-only wrapper over the same kernel: a float32 image cast to bf16,
-an all-ones mask, the score alone. K1 is compiled
-with ``nvcc`` from the repo's source at first use into ``build/`` and bound
-through a plain C interface with ``ctypes``.
+detection-only form: one launch of the same kernel compiled without the
+mask and the blur, reading the float32 image and rounding it to bf16 as it
+loads. Both are compiled with ``nvcc`` from the repo's source at first use
+into ``build/`` and bound through a plain C interface with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -60,10 +60,11 @@ def _gaussian_kernel1d(size: int = 7, sigma: float = 2.0) -> np.ndarray:
     return (k / k.sum()).astype(np.float32)
 
 
-def _blur_taps_bf16() -> list[float]:
+@functools.lru_cache(maxsize=None)
+def _blur_taps_bf16() -> tuple[float, ...]:
     """Gaussian taps rounded to bf16, as the kernel multiplies by them."""
     k = torch.from_numpy(_gaussian_kernel1d()).to(torch.bfloat16)
-    return [float(v) for v in k.float()]
+    return tuple(float(v) for v in k.float())
 
 
 def _nvcc() -> str:
@@ -74,32 +75,53 @@ def _nvcc() -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    """Build (once per source version) and bind the K1 shared library."""
-    src = _SOURCE.read_bytes()
+def _build(source: Path) -> ctypes.CDLL:
+    """Compile ``source`` (once per source version) into a shared library
+    under ``build/`` and load it."""
+    src = source.read_bytes()
     tag = hashlib.sha256(src).hexdigest()[:16]
-    so = _BUILD_DIR / f"fast_harris_blur_{tag}.so"
+    so = _BUILD_DIR / f"{source.stem}_{tag}.so"
     if not so.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-o", str(tmp), str(_SOURCE)]
+               "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
+               "-Xcompiler", "-fPIC", "-o", str(tmp), str(source)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"K1 build failed:\n{res.stdout}{res.stderr}")
         os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    fn = lib.vxs_fast_harris_blur
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+        so.with_suffix(".ptxas.txt").write_text(res.stderr)
+    return ctypes.CDLL(str(so))
+
+
+# C signatures of the library's entry points (see the .cu file's foot)
+_ARGTYPES = {
+    "vxs_fast_harris_blur": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p],
+    "vxs_fast_harris_score": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_void_p],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(source: Path, name: str):
+    """The entry point ``name`` of the library built from ``source``."""
+    fn = getattr(_build(source), name)
+    fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _blur_taps_c():
+    return (ctypes.c_float * 7)(*_blur_taps_bf16())
+
+
 def build_kernel() -> None:
-    """Compile and load K1 now (otherwise it happens at the first launch)."""
-    _kernel_fn()
+    """Compile and load K1 and K1b now (otherwise at the first launch)."""
+    _entry(_SOURCE, "vxs_fast_harris_blur")
+    _entry(_SOURCE, "vxs_fast_harris_score")
 
 
 def fast_harris_blur(img16: torch.Tensor, mask: torch.Tensor,
@@ -129,14 +151,14 @@ def fast_harris_blur(img16: torch.Tensor, mask: torch.Tensor,
     B, H, W = img16.shape
     score = torch.empty((B, H, W), dtype=torch.float32, device=img16.device)
     blur = torch.empty_like(img16)
-    if B == 0:
+    if score.numel() == 0:
         return score, blur
-    fn = _kernel_fn()
-    taps = (ctypes.c_float * 7)(*_blur_taps_bf16())
+    k1 = _entry(_SOURCE, "vxs_fast_harris_blur")
     with torch.cuda.device(img16.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(img16.data_ptr(), mask.data_ptr(), score.data_ptr(),
-                 blur.data_ptr(), B, H, W, float(threshold), taps, stream)
+        err = k1(img16.data_ptr(), mask.data_ptr(), score.data_ptr(),
+                 blur.data_ptr(), B, H, W, float(threshold), _blur_taps_c(),
+                 stream)
     if err != 0:
         raise RuntimeError(f"K1 launch failed with CUDA error {err}")
     launches += 1
@@ -230,31 +252,47 @@ def fast_harris_blur_reference(img16: torch.Tensor, mask: torch.Tensor,
     return score, blur
 
 
-def _score_inputs(img: torch.Tensor):
+def _check_score_input(img: torch.Tensor) -> None:
     if img.dim() not in (2, 3) or not img.is_floating_point():
         raise ValueError(f"img must be a float [H,W] or [B,H,W] image, got "
                          f"{img.dtype} {tuple(img.shape)}")
-    x = (img[None] if img.dim() == 2 else img).to(torch.bfloat16).contiguous()
-    mask = torch.ones(x.shape[1:], dtype=torch.int8, device=x.device)
-    return x, mask
 
 
 def fast_harris_score(img: torch.Tensor, threshold: float = 20.0) -> torch.Tensor:
     """K1b: FAST + Harris + NMS score of a float image [H,W] or [B,H,W]
-    (cast to bf16), no border mask (callers mask downstream); f32 score of
-    the input's shape, ``NEG`` off-corner. Launches K1 for a CUDA tensor,
-    runs the plain version for a CPU one."""
+    (rounded to bf16), no border mask (callers mask downstream); f32 score
+    of the input's shape, ``NEG`` off-corner. One kernel launch for a float32
+    CUDA tensor (another float type is cast to float32 first); the plain
+    version for a CPU tensor."""
+    _check_score_input(img)
+    if img.device.type == "cpu":
+        return fast_harris_score_reference(img, threshold)
+    if img.device.type != "cuda":
+        raise ValueError(f"unsupported device {img.device}")
+
     global score_launches
-    x, mask = _score_inputs(img)
-    score, _ = fast_harris_blur(x, mask, threshold)
-    if x.device.type == "cuda":
-        score_launches += 1
-    return score[0] if img.dim() == 2 else score
+    x = img.to(torch.float32).contiguous()
+    B, H, W = (1, *x.shape) if x.dim() == 2 else x.shape
+    score = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    if score.numel() == 0:
+        return score
+    k1b = _entry(_SOURCE, "vxs_fast_harris_score")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = k1b(x.data_ptr(), score.data_ptr(), B, H, W, float(threshold),
+                  stream)
+    if err != 0:
+        raise RuntimeError(f"K1b launch failed with CUDA error {err}")
+    score_launches += 1
+    return score
 
 
 def fast_harris_score_reference(img: torch.Tensor,
                                 threshold: float = 20.0) -> torch.Tensor:
-    """The plain PyTorch version of K1b."""
-    x, mask = _score_inputs(img)
+    """The plain PyTorch version of K1b: K1's plain version on the image
+    cast to bf16, with an all-ones mask."""
+    _check_score_input(img)
+    x = (img[None] if img.dim() == 2 else img).to(torch.bfloat16).contiguous()
+    mask = torch.ones(x.shape[1:], dtype=torch.int8, device=x.device)
     score, _ = fast_harris_blur_reference(x, mask, threshold)
     return score[0] if img.dim() == 2 else score

@@ -2,13 +2,16 @@
 K1b from the repo's source, holds them bit for bit against their plain
 PyTorch versions (at the rendered 8-frame atlas and at edge shapes) and the
 pyramid atlas built on the card against the one built on the CPU, then
-drives the port's two main paths over a 240-frame 640x480 synthetic
-sequence (bench input: scene seed 5) and checks their accuracy: the RGB-D
-offline pipeline, and the online scan (per-frame tracking, keyframes, local
-BA) as one run, streamed in 8-frame chunks, with a depth hole (the left 200
-columns: triangulated landmarks, so local BA iterates), and over the
-sequence tiled five times (1200 frames: the keyframe ring wraps and the
-landmark table is compacted at full capacity).
+drives the port's paths over a 240-frame 640x480 synthetic sequence (bench
+input: scene seed 5) and checks their accuracy: the RGB-D offline
+pipeline; the online scan (per-frame tracking, keyframes, local BA) as one
+run, streamed in 8-frame chunks, with a depth hole (the left 200 columns:
+triangulated landmarks, so local BA iterates), and over the sequence tiled
+five times (1200 frames: the keyframe ring wraps and the landmark table is
+compacted at full capacity); the offline pipeline over 8 folded lanes of
+120 frames (BASELINE config 5); the monocular offline pipeline over the
+sequence tiled four times at stride 4 (config 2b); and the monocular scan
+over 60 frames at stride 4 (config 2).
 
 Run from the repository root: ``python3 chip_smoke.py [--frames N]``.
 It exits non-zero (and prints no result) without a CUDA device or when any
@@ -152,14 +155,12 @@ def run_pipeline(grays, depths, gt_t) -> dict:
     import numpy as np
     import torch
 
-    from visionx_slam_torch.data import synthetic
     from visionx_slam_torch.eval.trajectory import ate_of_run
     from visionx_slam_torch.ops import detect
-    from visionx_slam_torch.ops.camera import make_camera
     from visionx_slam_torch.tracking.offline_pipeline import run_offline_pipeline
     from visionx_slam_torch.utils.config import TrackingOptions
 
-    cam = make_camera(synthetic.FX, synthetic.FY, synthetic.CX, synthetic.CY)
+    cam = _camera()
     opts = TrackingOptions()
     g = torch.as_tensor(grays).cuda()
     d = torch.as_tensor(depths).cuda()
@@ -202,6 +203,168 @@ HOLE_KF_JAX = 77
 HOLE_LM_JAX = 57999
 
 
+# The JAX package on the CPU at the bench shapes of configs 5, 2b and 2
+# (tools/port_jax_references.py): per lane of the 8 x 120-frame windows
+# (starts 30 k), 120/120 tracked, 40 keyframes and 40,000 landmarks each, at
+# these ATEs; mono offline 234/240 tracked at 0.35756 m scale-aligned with
+# 76 keyframes and 4,657 landmarks. The mono scan over 8 draws of its
+# per-frame keys (tools/mono_scan_draws.py): 55-60 tracked (median 59.5),
+# scale-aligned ATE 18.2-239.5 mm (median 22.8 mm); the package's own draw
+# reads 55/60 at 149.3 mm. The port's scan is held to the median draw.
+LANES_B, LANES_T = 8, 120
+LANES_ATE_JAX = (0.005571, 0.005413, 0.004859, 0.003390,
+                 0.003650, 0.003943, 0.004718, 0.005709)
+MONO_OFF_ATE_JAX = 0.357560
+MONO_OFF_TRACKED_JAX = 234
+MONO_SCAN_ATE_JAX = 0.022810       # median of the 8 draws
+MONO_SCAN_TRACKED_JAX = 59.5
+# the bench's mono offline budget (bench.py config 2b)
+MONO_KW = dict(mono_pair_hypotheses=64, mono_lo_starts=2,
+               mono_sample_bias=64.0, mono_score_top_k=32)
+
+
+def _camera():
+    from visionx_slam_torch.data import synthetic
+    from visionx_slam_torch.ops.camera import make_camera
+
+    return make_camera(synthetic.FX, synthetic.FY, synthetic.CX, synthetic.CY)
+
+
+def run_lanes(grays, depths, gt_t) -> dict:
+    """Config 5: 8 staggered 120-frame windows of the loop as folded lanes,
+    a warm-up run then a counted, timed run; lane 0 also as a single run
+    of its frames."""
+    import numpy as np
+    import torch
+
+    from visionx_slam_torch.eval.trajectory import ate_of_run
+    from visionx_slam_torch.ops import detect
+    from visionx_slam_torch.tracking.offline_pipeline import (
+        default_lane_kf_capacity,
+        run_offline_pipeline,
+        run_offline_pipeline_batched,
+    )
+    from visionx_slam_torch.utils.config import TrackingOptions
+
+    cam, opts = _camera(), TrackingOptions()
+    T = len(grays)
+    starts = [(k * T) // LANES_B for k in range(LANES_B)]
+    Tw = min(LANES_T, T)
+    g2, d2, gt2 = (np.concatenate([x, x]) for x in (grays, depths, gt_t))
+    g = torch.as_tensor(np.stack([g2[s:s + Tw] for s in starts])).cuda()
+    d = torch.as_tensor(np.stack([d2[s:s + Tw] for s in starts])).cuda()
+    K = default_lane_kf_capacity(Tw)
+    run_offline_pipeline_batched(cam, g, d, opts, device="cuda")
+
+    stage_s: dict = {}
+    detect.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, out = run_offline_pipeline_batched(cam, g, d, opts, device="cuda",
+                                          timings=stage_s)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = detect.launches
+    pose, tracked = out.pose.cpu().numpy(), out.tracked.cpu().numpy()
+    _require(pose.shape == (LANES_B, Tw, 4, 4) and bool(np.isfinite(pose).all()),
+             f"lane poses of shape {pose.shape}, all finite")
+    ates = [ate_of_run(pose[b], tracked[b], gt2[s:s + Tw])[0]
+            for b, s in enumerate(starts)]
+    _require(all(a is not None for a in ates), "every lane has an ATE")
+
+    _, one = run_offline_pipeline(cam, g[0], d[0], opts, device="cuda",
+                                  kf_capacity=K)
+    one_ate, one_tracked = ate_of_run(one.pose.cpu().numpy(),
+                                      one.tracked.cpu().numpy(), gt2[:Tw])
+    return {"lanes": LANES_B, "frames_per_lane": Tw, "kf_capacity": K,
+            "seconds": wall, "aggregate_fps": LANES_B * Tw / wall,
+            "tracked_frac": float(tracked.mean()), "lane_ate_m": ates,
+            "ate_m_mean": float(np.mean(ates)), "ate_m_max": float(np.max(ates)),
+            "lane_tracked": tracked.sum(1).tolist(),
+            "keyframes": out.n_keyframes.tolist(),
+            "landmarks": out.n_landmarks.tolist(), "k1_launches": launches,
+            "single_lane0_ate_m": one_ate, "single_lane0_tracked": one_tracked,
+            "stage_seconds": stage_s}
+
+
+def run_mono_offline(grays, gt_t) -> dict:
+    """Config 2b: the loop tiled four times at stride 4 (240 frames), no
+    depth, the monocular offline pipeline with the bench's budget; a
+    warm-up run then a counted, timed run."""
+    import numpy as np
+    import torch
+
+    from visionx_slam_torch.eval.trajectory import ate_of_run
+    from visionx_slam_torch.ops import detect
+    from visionx_slam_torch.tracking.offline_pipeline import (
+        default_lane_kf_capacity,
+        run_offline_pipeline,
+    )
+    from visionx_slam_torch.utils.config import TrackingOptions
+
+    cam, opts = _camera(), TrackingOptions()
+    g = torch.as_tensor(np.tile(grays, (4, 1, 1))[::4].copy()).cuda()
+    gt = np.tile(gt_t, (4, 1))[::4]
+    z = torch.zeros(g.shape, dtype=torch.float32, device="cuda")
+    T = g.shape[0]
+    kw = dict(monocular=True, kf_capacity=default_lane_kf_capacity(T), **MONO_KW)
+    run_offline_pipeline(cam, g, z, opts, device="cuda", **kw)
+
+    stage_s: dict = {}
+    detect.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, out = run_offline_pipeline(cam, g, z, opts, device="cuda",
+                                  timings=stage_s, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = detect.launches
+    pose, tracked = out.pose.cpu().numpy(), out.tracked.cpu().numpy()
+    _require(pose.shape == (T, 4, 4) and bool(np.isfinite(pose).all()),
+             f"mono poses of shape {pose.shape}, all finite")
+    ate, n_tracked = ate_of_run(pose, tracked, gt, with_scale=True)
+    return {"frames": T, "seconds": wall, "fps": T / wall,
+            "ate_m_scale_aligned": ate, "tracked": n_tracked,
+            "keyframes": int(out.n_keyframes),
+            "landmarks": int(out.n_landmarks), "k1_launches": launches,
+            "stage_seconds": stage_s}
+
+
+def run_mono_scan(grays, gt_t) -> dict:
+    """Config 2: the scan over 60 frames at stride 4, no depth, with the
+    monocular option set (keyframes inherit tracked landmarks, the init
+    needs 25 triangulable points)."""
+    import numpy as np
+    import torch
+
+    from visionx_slam_torch.eval.trajectory import ate_of_run
+    from visionx_slam_torch.ops import detect
+    from visionx_slam_torch.tracking.scan_pipeline import run_scan_pipeline
+    from visionx_slam_torch.utils.config import TrackingOptions
+
+    g = torch.as_tensor(grays[::4].copy()).cuda()
+    gt = gt_t[::4]
+    z = torch.zeros(g.shape, dtype=torch.float32, device="cuda")
+    opts = TrackingOptions(link_tracked_landmarks=True, min_init_landmarks=25)
+    stats: dict = {}
+    detect.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, out = run_scan_pipeline(_camera(), g, z, opts, device="cuda", stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pose, tracked = out.pose.cpu().numpy(), out.tracked.cpu().numpy()
+    _require(pose.shape == (len(gt), 4, 4) and bool(np.isfinite(pose).all()),
+             f"mono scan poses of shape {pose.shape}, all finite")
+    ate, n_tracked = ate_of_run(pose, tracked, gt, with_scale=True)
+    return {"frames": len(gt), "seconds": wall, "fps": len(gt) / wall,
+            "ate_m_scale_aligned": ate, "tracked": n_tracked,
+            "first_tracked": int(np.flatnonzero(tracked)[0]) if tracked.any() else None,
+            "keyframe_events": int(out.is_keyframe.sum()),
+            "landmarks": int(out.n_landmarks[-1]), "k1_launches": detect.launches,
+            **stats}
+
+
 def _scan(cam, g, d, stats=None, st0=None, frame0=0):
     from visionx_slam_torch.tracking.scan_pipeline import run_scan_pipeline
     from visionx_slam_torch.utils.config import TrackingOptions
@@ -234,11 +397,9 @@ def run_scan(grays, depths, gt_t) -> dict:
     import numpy as np
     import torch
 
-    from visionx_slam_torch.data import synthetic
     from visionx_slam_torch.ops import detect
-    from visionx_slam_torch.ops.camera import make_camera
 
-    cam = make_camera(synthetic.FX, synthetic.FY, synthetic.CX, synthetic.CY)
+    cam = _camera()
     g = torch.as_tensor(grays).cuda()
     d = torch.as_tensor(depths).cuda()
     T = len(grays)
@@ -292,11 +453,9 @@ def run_hole_scan(grays, depths, gt_t) -> dict:
     twice, so local BA has work."""
     import torch
 
-    from visionx_slam_torch.data import synthetic
     from visionx_slam_torch.ops import detect
-    from visionx_slam_torch.ops.camera import make_camera
 
-    cam = make_camera(synthetic.FX, synthetic.FY, synthetic.CX, synthetic.CY)
+    cam = _camera()
     d = torch.as_tensor(depths).cuda()
     d[:, :, :HOLE_COLS] = 0.0
     stats: dict = {}
@@ -318,10 +477,8 @@ def run_long_scan(grays, depths, gt_t, reps: int) -> dict:
     import numpy as np
     import torch
 
-    from visionx_slam_torch.data import synthetic
-    from visionx_slam_torch.ops.camera import make_camera
 
-    cam = make_camera(synthetic.FX, synthetic.FY, synthetic.CX, synthetic.CY)
+    cam = _camera()
     g = torch.as_tensor(np.tile(grays, (reps, 1, 1))).cuda()
     d = torch.as_tensor(np.tile(depths, (reps, 1, 1))).cuda()
     gt = np.tile(gt_t, (reps, 1))
@@ -424,10 +581,61 @@ def main() -> int:
     _require(long["compactions"] >= 1, "landmark compaction ran")
     _require(long["ate_m"] is not None and long["ate_m"] <= 2 * LONG_ATE_JAX,
              f"long ATE {long['ate_m']} m <= {2 * LONG_ATE_JAX} m")
+
+    # ---- 8. folded lanes (BASELINE config 5) ----
+    lanes = run_lanes(grays, depths, gt_t)
+    print("lanes " + json.dumps(lanes) + f" ({card})", flush=True)
+    n_frames = LANES_B * lanes["frames_per_lane"]
+    _require(lanes["tracked_frac"] >= 0.95, f"lanes tracked {lanes['tracked_frac']}")
+    if T == 240:
+        _require(lanes["k1_launches"] == n_frames // 8,
+                 f"K1 launches on the lanes {lanes['k1_launches']} == {n_frames // 8}")
+        for b, (a, a_j) in enumerate(zip(lanes["lane_ate_m"], LANES_ATE_JAX)):
+            _require(a <= 2 * a_j, f"lane {b} ATE {a} m <= 2 x JAX {a_j} m")
+    _require(lanes["single_lane0_ate_m"] is not None
+             and abs(lanes["lane_ate_m"][0] - lanes["single_lane0_ate_m"]) <= 5e-4,
+             f"lane 0 ATE {lanes['lane_ate_m'][0]} within 0.5 mm of its single "
+             f"run {lanes['single_lane0_ate_m']}")
+    _require(abs(lanes["lane_tracked"][0] - lanes["single_lane0_tracked"]) <= 1,
+             "lane 0 tracked within one frame of its single run")
+
+    # ---- 9. monocular offline (config 2b) ----
+    mono = run_mono_offline(grays, gt_t)
+    print("mono offline " + json.dumps(mono) + f" ({card})", flush=True)
+    _require(mono["landmarks"] > 0, "mono landmarks from triangulated depth")
+    _require(mono["k1_launches"] == -(-mono["frames"] // 8),
+             f"K1 launches on mono offline {mono['k1_launches']}")
+    _require(mono["ate_m_scale_aligned"] is not None, "mono offline has an ATE")
+    if T == 240:
+        _require(mono["ate_m_scale_aligned"] <= 2 * MONO_OFF_ATE_JAX,
+                 f"mono offline ATE {mono['ate_m_scale_aligned']} m <= 2 x JAX "
+                 f"{MONO_OFF_ATE_JAX} m")
+        _require(mono["tracked"] >= 0.9 * MONO_OFF_TRACKED_JAX,
+                 f"mono offline tracked {mono['tracked']}")
+
+    # ---- 10. monocular scan (config 2) ----
+    mscan = run_mono_scan(grays, gt_t)
+    print("mono scan " + json.dumps(mscan) + f" ({card})", flush=True)
+    _require(mscan["k1_launches"] == -(-mscan["frames"] // 8),
+             f"K1 launches on the mono scan {mscan['k1_launches']}")
+    _require(mscan["ate_m_scale_aligned"] is not None, "mono scan has an ATE")
+    if T == 240:
+        _require(mscan["tracked"] >= MONO_SCAN_TRACKED_JAX - 4,
+                 f"mono scan tracked {mscan['tracked']} >= JAX's median draw "
+                 f"{MONO_SCAN_TRACKED_JAX} - 4")
+        _require(mscan["ate_m_scale_aligned"] <= 2 * MONO_SCAN_ATE_JAX,
+                 f"mono scan ATE {mscan['ate_m_scale_aligned']} m <= 2 x JAX's "
+                 f"median draw {MONO_SCAN_ATE_JAX} m")
+
     k1["launches"] = scan["k1_launches"]
     k1b["launches"] = scan["k1b_launches"]
+    k1["launches_by_path"] = {
+        "offline": res["k1_launches"], "scan": scan["k1_launches"],
+        "hole_scan": hole["k1_launches"], "lanes": lanes["k1_launches"],
+        "mono_offline": mono["k1_launches"], "mono_scan": mscan["k1_launches"]}
+    k1b["launches_by_path"] = {"scan": scan["k1b_launches"]}
 
-    # ---- 8. result ----
+    # ---- 11. result ----
     print(json.dumps({"kernels": [k1, k1b]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,10 @@
 """The port on a CUDA device against the same port on the CPU (skipped
 without a card; run on the GPU host with ``--noconftest``, see README).
 No jax here: the GPU host has none. The ORB atlas (bit for bit), the
-offline pipeline, global BA, and the online scan: with depth holes
-(triangulation, local BA and compaction run), through a blackout (reset and
-re-initialization), and with the monocular option set (essential init,
-inherited landmarks).
+offline pipeline (one lane, two folded lanes, monocular), global BA, and
+the online scan: with depth holes (triangulation, local BA and compaction
+run), through a blackout (reset and re-initialization), and with the
+monocular option set (essential init, inherited landmarks).
 
 On CUDA, ``global_ba``'s landmark sums use ``index_add_``, which adds with
 atomics in an order that changes from run to run, and GEMMs reduce in
@@ -29,6 +29,8 @@ from visionx_slam_torch.ops.se3 import matrix_to_quat, quat_mul, so3_exp
 from visionx_slam_torch.tracking.offline_pipeline import (
     build_keyframe_map,
     build_offline_pipeline,
+    run_offline_pipeline,
+    run_offline_pipeline_batched,
 )
 from visionx_slam_torch.tracking.scan_pipeline import GOOD, run_scan_pipeline
 from visionx_slam_torch.tracking.stages import sample_depth_image
@@ -187,3 +189,59 @@ def test_scan_with_monocular_options_runs_on_cuda(cuda):
     # local BA has work
     assert bool(out.tracked.any()) and int(out.is_keyframe.sum()) >= 1, stats
     assert stats["ba_iterations"] > 0, stats
+
+
+def test_folded_lanes_on_cuda(cuda):
+    """Two folded lanes (the sequence and its reverse) on the card: K1 runs
+    once per 8 folded frames, and lane 0 lies in a band around a single
+    card run of its frames (global BA's atomics vary the last bits:
+    ATE within 0.5 mm, tracked within one frame) and around the CPU run."""
+    grays, depths, gt = sequence(16, 7)
+    cam = make_camera(synthetic.FX, synthetic.FY, synthetic.CX, synthetic.CY)
+    g2 = np.stack([grays, grays[::-1].copy()])
+    d2 = np.stack([depths, depths[::-1].copy()])
+    kw = dict(kf_capacity=16)
+    before = detect.launches
+    _, ob = run_offline_pipeline_batched(cam, g2, d2, TrackingOptions(),
+                                         device=cuda, **kw)
+    assert detect.launches - before == 4
+    _, o1 = run_offline_pipeline(cam, grays, depths, TrackingOptions(),
+                                 device=cuda, **kw)
+    _, oc = run_offline_pipeline_batched(cam, g2, d2, TrackingOptions(),
+                                         device="cpu", **kw)
+    for b, gt_b in ((0, gt), (1, gt[::-1])):
+        tr = ob.tracked[b].cpu().numpy()
+        assert tr.sum() >= 15
+        ate, _ = ate_of_run(ob.pose[b].cpu().numpy(), tr, gt_b)
+        ate_c, _ = ate_of_run(oc.pose[b].numpy(), oc.tracked[b].numpy(), gt_b)
+        assert ate < 0.02 and abs(ate - ate_c) <= 0.005, (b, ate, ate_c)
+    tr0, tr1 = ob.tracked[0].cpu().numpy(), o1.tracked.cpu().numpy()
+    assert abs(int(tr0.sum()) - int(tr1.sum())) <= 1
+    ate0, _ = ate_of_run(ob.pose[0].cpu().numpy(), tr0, gt)
+    ate1, _ = ate_of_run(o1.pose.cpu().numpy(), tr1, gt)
+    assert abs(ate0 - ate1) <= 5e-4, (ate0, ate1)
+
+
+def test_mono_offline_on_cuda(cuda):
+    """The monocular offline pipeline with the bench's budget on the card
+    (batched essential RANSAC, scale chain, DLT re-track) against the CPU
+    run: both draws are noise-bound (tests/test_torch_mono.py), so loose
+    bounds."""
+    grays, _, gt = sequence(24, 11, 48)
+    zero = np.zeros(grays.shape, np.float32)
+    cam = make_camera(synthetic.FX, synthetic.FY, synthetic.CX, synthetic.CY)
+    kw = dict(kf_capacity=16, mono_pair_hypotheses=64, mono_lo_starts=2,
+              mono_sample_bias=64.0, mono_score_top_k=32, monocular=True)
+    before = detect.launches
+    ms, og = run_offline_pipeline(cam, grays, zero, TrackingOptions(),
+                                  device=cuda, **kw)
+    assert detect.launches - before == 3
+    _, oc = run_offline_pipeline(cam, grays, zero, TrackingOptions(),
+                                 device="cpu", **kw)
+    assert np.isfinite(og.pose.cpu().numpy()).all()
+    assert int(og.n_landmarks) > 0 and int(og.n_keyframes) >= 3
+    tr_g, tr_c = og.tracked.cpu().numpy(), oc.tracked.numpy()
+    assert tr_g.sum() >= 20 and tr_c.sum() >= 20, (tr_g, tr_c)
+    ate_g, _ = ate_of_run(og.pose.cpu().numpy(), tr_g, gt, with_scale=True)
+    ate_c, _ = ate_of_run(oc.pose.numpy(), tr_c, gt, with_scale=True)
+    assert ate_g < 0.3 and ate_c < 0.3, (ate_g, ate_c)

@@ -21,7 +21,8 @@ and 5.21e-3 rad (port), translation-direction medians 0.349 and 0.420 rad,
 a ratio of 1.29 and 1.20; the bounds are 1.4x and 1.3x.
 
 The depth scale (1e-4 relative, odd and even inlier counts),
-``jnp.nanmedian``'s even-count mean, the forward-mode Gauss-Newton polish
+``jnp.nanmedian``'s even-count mean, the Gauss-Newton polish (its Jacobian
+in closed form where the JAX package takes ``jax.jacfwd``)
 and the sign-gated scoring helpers are held to the JAX functions too.
 """
 
@@ -190,7 +191,7 @@ def test_scale_from_depth_matches(n_good):
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_refine_essential_pose_matches(seed):
-    """The forward-mode Jacobian GN polish from a perturbed start."""
+    """The Gauss-Newton polish from a perturbed start."""
     jc, tc = cameras()
     pa, pb, valid = _two_view(seed)
     r = JE.essential_ransac(jc, pa, pb, valid, jax.random.PRNGKey(seed))

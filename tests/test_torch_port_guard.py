@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither jax, cv2 nor
 ``visionx_slam_tpu`` (the GPU host has no jax and no cv2) — every module,
-and the offline pipeline and the online scan run end to end — and its
+and the offline pipeline (one lane, folded lanes, monocular) and the online
+scan run end to end — and its
 in-memory sequence is bit-for-bit the one the bench loads from PNGs."""
 
 import subprocess
@@ -12,6 +13,7 @@ from visionx_slam_torch.data import synthetic
 
 _GUARD = r"""
 import importlib, pkgutil, sys
+import numpy as np
 for name in ("jax", "jaxlib", "cv2", "visionx_slam_tpu"):
     sys.modules[name] = None          # any import of these now fails
 import visionx_slam_torch
@@ -24,7 +26,8 @@ from visionx_slam_torch.models import estimation, local_ba, matching, orb_torch
 from visionx_slam_torch.ops import detect, linalg
 from visionx_slam_torch.ops.camera import make_camera
 from visionx_slam_torch.tracking import mapstate, scan_pipeline, stages
-from visionx_slam_torch.tracking.offline_pipeline import run_offline_pipeline
+from visionx_slam_torch.tracking.offline_pipeline import (
+    run_offline_pipeline, run_offline_pipeline_batched)
 from visionx_slam_torch.tracking.scan_pipeline import run_scan_pipeline
 from visionx_slam_torch.utils.config import TrackingOptions
 g, d, gt = synthetic.make_sequence(4)
@@ -33,6 +36,15 @@ ms, out = run_offline_pipeline(cam, g, d, TrackingOptions(), device="cpu",
                                kf_capacity=4)
 ate, n = ate_of_run(out.pose.numpy(), out.tracked.numpy(), gt)
 assert n == 4 and ate < 0.02, (n, ate)
+_, outb = run_offline_pipeline_batched(cam, np.stack([g, g[::-1]]),
+                                      np.stack([d, d[::-1]]), TrackingOptions(),
+                                      device="cpu", kf_capacity=4)
+assert outb.pose.shape == (2, 4, 4, 4) and bool(outb.tracked.all())
+ate, n = ate_of_run(outb.pose[0].numpy(), outb.tracked[0].numpy(), gt)
+assert n == 4 and ate < 0.02, (n, ate)
+_, outm = run_offline_pipeline(cam, g, np.zeros_like(d), TrackingOptions(),
+                               device="cpu", monocular=True, kf_capacity=4)
+assert outm.pose.shape == (4, 4, 4) and bool(np.isfinite(outm.pose.numpy()).all())
 st, out = run_scan_pipeline(cam, g, d, TrackingOptions(), device="cpu",
                             kf_capacity=8, lm_capacity=8192)
 ate, n = ate_of_run(out.pose.numpy(), out.tracked.numpy(), gt)

@@ -45,9 +45,13 @@ def camera_from_numpy(cam) -> CameraParams:
 
 def mapstate_from_numpy(ms, device="cpu") -> MapState:
     """A port ``MapState`` on ``device`` from the JAX package's (any object
-    with the same field names holding array-likes)."""
+    with the same field names holding array-likes, or a mapping of them as
+    ``mapstate_to_numpy`` gives). Fields keep their shapes, so a
+    lane-stacked state ([B, ...] per field) converts as well as a merged
+    one."""
     dev = torch.device(device)
-    return MapState(*(torch.as_tensor(np.array(getattr(ms, f))).to(dev)
+    get = ms.__getitem__ if isinstance(ms, dict) else ms.__getattribute__
+    return MapState(*(torch.as_tensor(np.array(get(f))).to(dev)
                       for f in MapState._fields))
 
 

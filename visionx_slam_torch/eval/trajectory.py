@@ -1,5 +1,6 @@
-"""Trajectory evaluation (numpy only): the ``tcw_to_twc`` and ``ate_rmse``
-of ``visionx_slam_tpu/eval/trajectory.py``."""
+"""Trajectory evaluation (numpy only): the ``tcw_to_twc``,
+``umeyama_alignment`` and ``ate_rmse`` of
+``visionx_slam_tpu/eval/trajectory.py``."""
 
 from __future__ import annotations
 
@@ -15,32 +16,38 @@ def tcw_to_twc(T_cw: np.ndarray) -> np.ndarray:
     return out
 
 
-def umeyama_alignment(src: np.ndarray, dst: np.ndarray):
-    """Least-squares rigid alignment src -> dst: (R, t)."""
+def umeyama_alignment(src: np.ndarray, dst: np.ndarray,
+                      with_scale: bool = False):
+    """Least-squares rigid (or, ``with_scale``, similarity) alignment
+    src -> dst: (R, t, s)."""
     mu_s = src.mean(axis=0)
     mu_d = dst.mean(axis=0)
     xs = src - mu_s
     xd = dst - mu_d
     cov = xd.T @ xs / len(src)
-    U, _, Vt = np.linalg.svd(cov)
+    U, D, Vt = np.linalg.svd(cov)
     S = np.eye(3)
     if np.linalg.det(U) * np.linalg.det(Vt) < 0:
         S[2, 2] = -1
     R = U @ S @ Vt
-    return R, mu_d - R @ mu_s
+    s = float(np.trace(np.diag(D) @ S) / ((xs**2).sum() / len(src))) \
+        if with_scale else 1.0
+    return R, mu_d - s * R @ mu_s, s
 
 
-def ate_rmse(est_t: np.ndarray, gt_t: np.ndarray) -> float:
-    """Absolute trajectory error RMSE after rigid Horn alignment ([N,3]
-    each)."""
-    R, t = umeyama_alignment(est_t, gt_t)
-    aligned = (R @ est_t.T).T + t
+def ate_rmse(est_t: np.ndarray, gt_t: np.ndarray,
+             with_scale: bool = False) -> float:
+    """Absolute trajectory error RMSE after Horn alignment ([N,3] each);
+    ``with_scale`` for monocular runs, whose scale is arbitrary."""
+    R, t, s = umeyama_alignment(est_t, gt_t, with_scale)
+    aligned = (s * (R @ est_t.T)).T + t
     err = aligned - gt_t
     return float(np.sqrt((err**2).sum(axis=-1).mean()))
 
 
-def ate_of_run(pose_cw: np.ndarray, tracked: np.ndarray, gt_t: np.ndarray):
-    """(ATE RMSE [m] over the tracked frames, n_tracked) of an offline run
+def ate_of_run(pose_cw: np.ndarray, tracked: np.ndarray, gt_t: np.ndarray,
+               with_scale: bool = False):
+    """(ATE RMSE [m] over the tracked frames, n_tracked) of a run
     (``OfflineOut.pose`` [T,4,4] T_cw as numpy); ATE is None under 3
     tracked frames."""
     tracked = np.asarray(tracked, bool)
@@ -48,4 +55,4 @@ def ate_of_run(pose_cw: np.ndarray, tracked: np.ndarray, gt_t: np.ndarray):
         return None, int(tracked.sum())
     est = np.asarray([tcw_to_twc(pose_cw[i])[:3, 3]
                       for i in np.flatnonzero(tracked)])
-    return ate_rmse(est, gt_t[tracked]), int(tracked.sum())
+    return ate_rmse(est, gt_t[tracked], with_scale), int(tracked.sum())

@@ -1,22 +1,24 @@
 """Batched, fixed-shape robust estimation (counterpart of
-``visionx_slam_tpu/models/estimation.py``): RGB-D PnP RANSAC, the
-motion-prior PnP tier, essential-matrix RANSAC with cheirality recovery,
-and two-view DLT triangulation.
+``visionx_slam_tpu/models/estimation.py``): PnP RANSAC (RGB-D Procrustes
+and monocular 6-point DLT hypotheses), the motion-prior PnP tier,
+essential-matrix RANSAC with cheirality recovery, and two-view DLT
+triangulation.
 
-The PnP functions take explicit leading batch dimensions (frame pairs, then
-hypotheses) where the JAX package used ``vmap``; ``essential_ransac`` solves
-one problem, its hypotheses batched. Random minimal sets come from a
-``torch.Generator`` by the same Gumbel-top-k construction; torch cannot
-reproduce ``jax.random``'s bits, so the samplers also accept injected
-indices (tests feed them the JAX package's samples).
+The RANSAC functions take explicit leading batch dimensions (problems, then
+hypotheses) where the JAX package used ``vmap``. Random minimal sets come
+from a ``torch.Generator``, or from uniforms the caller drew (``noise``), by
+the same Gumbel-top-k construction; torch cannot reproduce
+``jax.random``'s bits, so the samplers also accept injected indices (tests
+feed them the JAX package's samples).
 
 Symmetric eigenvectors and 3x3 SVDs come from ``torch.linalg``: their
 column signs differ from LAPACK's and JAX's. Essential-matrix candidates are
 sign-normalized (``_decompose_uv``) and compared by count in the JAX
 package's candidate order, so only exact ties can resolve differently.
 ``torch.linalg.eigh`` and ``svd`` check their status on the host, which
-synchronizes a CUDA stream: they run only on the essential-matrix path
-(initialization and the tracking fallback).
+synchronizes a CUDA stream: they run only in the essential-matrix and DLT
+PnP paths (the scan's initialization and fallback, and the monocular
+offline pipeline, once per chunk of problems).
 """
 
 from __future__ import annotations
@@ -53,19 +55,27 @@ class PnPResult(NamedTuple):
 
 def sample_minimal_sets(gen: torch.Generator | None, valid: torch.Tensor,
                         n_hypotheses: int, k: int,
-                        idx: torch.Tensor | None = None) -> torch.Tensor:
+                        idx: torch.Tensor | None = None,
+                        log_weights: torch.Tensor | None = None,
+                        noise: torch.Tensor | None = None) -> torch.Tensor:
     """[..., H, k] indices, distinct within a hypothesis, valid-only:
     Gumbel noise on log(valid), then the k largest (stable top-k). With
     fewer than k valid entries invalid indices leak in; such hypotheses
-    lose the consensus vote. ``idx`` given: returned as is (int64)."""
+    lose the consensus vote. ``idx`` given: returned as is (int64).
+    ``log_weights`` [..., N]: PROSAC-style bias, sets drawn with
+    probability proportional to exp(log_weights). ``noise`` [..., H, N]:
+    the uniforms to use instead of drawing from ``gen``."""
     if idx is not None:
         return idx.long()
     n = valid.shape[-1]
-    u = torch.rand((*valid.shape[:-1], n_hypotheses, n), generator=gen,
-                   device=valid.device)
+    u = noise if noise is not None else torch.rand(
+        (*valid.shape[:-1], n_hypotheses, n), generator=gen,
+        device=valid.device)
     u = u.clamp(min=torch.finfo(torch.float32).tiny)
     g = -torch.log(-torch.log(u))
     scores = g + torch.where(valid[..., None, :], 0.0, -torch.inf)
+    if log_weights is not None:
+        scores = scores + log_weights[..., None, :]
     return stable_topk(scores, k)[1]
 
 
@@ -85,6 +95,41 @@ def _kabsch3(P: torch.Tensor, Q: torch.Tensor):
     R = triad(Q) @ triad(P).transpose(-1, -2)
     t = Q.mean(dim=-2) - (R @ P.mean(dim=-2)[..., None])[..., 0]
     return R, t
+
+
+def _dlt_pnp(X: torch.Tensor, x: torch.Tensor):
+    """Minimal DLT pose from 6 points: X [..., 6, 3] world, x [..., 6, 2]
+    normalized. The points are centred and scaled, the 12x12 normal
+    matrix's smallest eigenvector gives the projective P, and +P and -P are
+    each snapped to SE(3) by SVD (closest rotation, translation over the
+    mean singular value); the sign that puts more of the sample in front
+    wins (+P on ties). Returns (R [..., 3, 3], t [..., 3])."""
+    c = X.mean(dim=-2, keepdim=True)
+    s = torch.clamp(torch.linalg.norm(X - c, dim=-1).mean(-1), min=1e-9)
+    Xn = (X - c) / s[..., None, None]
+    Xh = _homog(Xn)                                            # [..., 6, 4]
+    zeros = torch.zeros_like(Xh)
+    rows_u = torch.cat([Xh, zeros, -x[..., 0:1] * Xh], dim=-1)  # [..., 6, 12]
+    rows_v = torch.cat([zeros, Xh, -x[..., 1:2] * Xh], dim=-1)
+    A = torch.cat([rows_u, rows_v], dim=-2)                    # [..., 12, 12]
+    P = _smallest_eigvec(A.transpose(-1, -2) @ A).reshape(*A.shape[:-2], 3, 4)
+
+    Ps = torch.stack([P, -P])                                  # [2, ..., 3, 4]
+    M = Ps[..., :3]
+    bad = ~torch.isfinite(M).all(-1).all(-1)
+    Um, Sm, Vmt = torch.linalg.svd(torch.where(bad[..., None, None], 0.0, M))
+    Um = torch.where(bad[..., None, None], torch.nan, Um)
+    d = det3x3(Um) * det3x3(Vmt)
+    Um = torch.cat([Um[..., :2], Um[..., 2:] * d[..., None, None]], dim=-1)
+    R = Um @ Vmt                                  # Um diag(1, 1, d) Vmt
+    t = Ps[..., 3] / torch.clamp(Sm.mean(-1, keepdim=True), min=1e-12)
+    z = (Xn @ R[..., 2, :, None])[..., 0] + t[..., 2:3]       # [2, ..., 6]
+    pick_a = (z[0] > 0).sum(-1) >= (z[1] > 0).sum(-1)
+    R = torch.where(pick_a[..., None, None], R[0], R[1])
+    t = torch.where(pick_a[..., None], t[0], t[1])
+    # undo the normalization: x ~ R (X - c) / s + t
+    t_full = s[..., None] * t - (R @ c[..., 0, :, None])[..., 0]
+    return R, t_full
 
 
 def _reproj_err_px(cam: CameraParams, R, t, X, px):
@@ -159,20 +204,28 @@ def pnp_ransac(
     refine_iters: int = 6,
     init_pose: Pose | None = None,       # [P]
     depth_curr: torch.Tensor | None = None,  # [P,N] current-frame depth (m)
-    sample_idx: torch.Tensor | None = None,  # [P,H,3] injected minimal sets
+    sample_idx: torch.Tensor | None = None,  # [P,H,k] injected minimal sets
+    noise: torch.Tensor | None = None,       # [P,H,N] sampling uniforms
 ) -> PnPResult:
-    """RGB-D PnP RANSAC batched over P problems: 3-point Procrustes
-    hypotheses on depth-backprojected points, pre-scored; the best
-    min(16, H) get a 2-step GN polish on their own sample; ``init_pose``
-    adds a robust IRLS motion-prior hypothesis; the consensus winner is
-    refined on its inliers (``refine_iters`` GN steps) and re-scored."""
-    if depth_curr is None:
-        raise NotImplementedError("the monocular (DLT) variant is not ported")
+    """PnP RANSAC batched over P problems. Hypotheses: with ``depth_curr``
+    (RGB-D), 3-point Procrustes on depth-backprojected points; without,
+    6-point DLT (``_dlt_pnp``, monocular). They are pre-scored and the
+    best min(16, H) get a 2-step GN polish on their own sample;
+    ``init_pose`` adds a robust IRLS motion-prior hypothesis; the consensus
+    winner is refined on its inliers (``refine_iters`` GN steps) and
+    re-scored."""
     P, N = valid.shape
-    good_d = (depth_curr > 0.1) & (depth_curr < 10.0) & valid
-    idx = sample_minimal_sets(gen, good_d, n_hypotheses, 3, sample_idx)
-    q_cam = backproject(cam, pts2d, depth_curr)               # [P,N,3]
-    Rs, ts = _kabsch3(take_rows(pts3d, idx), take_rows(q_cam, idx))  # [P,H,...]
+    if depth_curr is not None:
+        good_d = (depth_curr > 0.1) & (depth_curr < 10.0) & valid
+        idx = sample_minimal_sets(gen, good_d, n_hypotheses, 3, sample_idx,
+                                  noise=noise)
+        q_cam = backproject(cam, pts2d, depth_curr)           # [P,N,3]
+        Rs, ts = _kabsch3(take_rows(pts3d, idx), take_rows(q_cam, idx))
+    else:
+        idx = sample_minimal_sets(gen, valid, n_hypotheses, 6, sample_idx,
+                                  noise=noise)
+        Rs, ts = _dlt_pnp(take_rows(pts3d, idx),
+                          take_rows(_normalize_px(cam, pts2d), idx))
     finite_h = torch.isfinite(Rs).all(-1).all(-1) & torch.isfinite(ts).all(-1)
     eye3 = torch.eye(3, dtype=Rs.dtype, device=Rs.device)
     Rs = torch.where(finite_h[..., None, None], Rs, eye3)
@@ -187,7 +240,7 @@ def pnp_ransac(
     keep = stable_topk(raw_counts, n_polish)[1]              # [P,n_polish]
     Rs = torch.gather(Rs, 1, keep[..., None, None].expand(-1, -1, 3, 3))
     ts = torch.gather(ts, 1, keep[..., None].expand(-1, -1, 3))
-    idx = torch.gather(idx, 1, keep[..., None].expand(-1, -1, 3))
+    idx = torch.gather(idx, 1, keep[..., None].expand(-1, -1, idx.shape[-1]))
 
     sample_w = torch.zeros((P, n_polish, N), dtype=pts3d.dtype,
                            device=pts3d.device)
@@ -417,52 +470,73 @@ def _score_candidates(Ra, Rb, tu, inl, h1, h2):
     z1, z2 = _two_ray_depths(Rs, ts, h1, h2)
     goods = inl & (z1 > 0) & (z2 > 0)                   # [4, ..., N]
     counts = goods.sum(-1)
-    ci = torch.argmax(counts, dim=0)                    # first max, [H]
-    ar = torch.arange(ci.shape[0], device=ci.device)
-    return counts[ci, ar], Rs[ci, ar], ts[ci, ar], goods[ci, ar]
+    ci = torch.argmax(counts, dim=0, keepdim=True)      # first max
+    pick = lambda x: torch.take_along_dim(
+        x, ci.reshape(*ci.shape, *([1] * (x.dim() - ci.dim()))), dim=0)[0]
+    return pick(counts), pick(Rs), pick(ts), pick(goods)
+
+
+def _sampson_and_jacobian(R: torch.Tensor, t: torch.Tensor, b1: torch.Tensor,
+                          b2: torch.Tensor, h1: torch.Tensor, h2: torch.Tensor):
+    """The signed Sampson residual r [..., N] of E = [unit(t)]x R and its
+    Jacobian [..., N, 5] at 0 in the parameters p of E(p) = [unit(t + p_3
+    b1 + p_4 b2)]x exp(p_:3) R: the derivative the JAX package takes by
+    ``jax.jacfwd``, in closed form (dE/dp_k = [u]x [e_k]x R for the
+    rotation, [(b - u (u.b)) / |t|]x R for the tangents, u = unit(t))."""
+    n = torch.clamp(torch.linalg.norm(t, dim=-1, keepdim=True), min=1e-12)
+    u = t / n
+    E = so3_hat(u) @ R
+    eye3 = _eye(3, R)
+    d_rot = so3_hat(u)[..., None, :, :] @ so3_hat(eye3) @ R[..., None, :, :]
+    db = torch.stack([b1, b2], -2)                         # [..., 2, 3]
+    du = (db - u[..., None, :] * (db * u[..., None, :]).sum(-1, keepdim=True)) / n[..., None]
+    dE = torch.cat([d_rot, so3_hat(du) @ R[..., None, :, :]], -3)   # [..., 5, 3, 3]
+
+    Ex1 = h1 @ E.transpose(-1, -2)                         # [..., N, 3]
+    Etx2 = h2 @ E
+    num = (h2 * Ex1).sum(-1)
+    den = Ex1[..., 0] ** 2 + Ex1[..., 1] ** 2 + Etx2[..., 0] ** 2 + Etx2[..., 1] ** 2
+    dcl = torch.clamp(den, min=1e-18)
+    r = num / torch.sqrt(dcl)
+    dEx1 = h1[..., None, :, :] @ dE.transpose(-1, -2)      # [..., 5, N, 3]
+    dEtx2 = h2[..., None, :, :] @ dE
+    dnum = (h2[..., None, :, :] * dEx1).sum(-1)            # [..., 5, N]
+    dden = 2.0 * (Ex1[..., None, :, 0] * dEx1[..., 0] + Ex1[..., None, :, 1] * dEx1[..., 1]
+                  + Etx2[..., None, :, 0] * dEtx2[..., 0]
+                  + Etx2[..., None, :, 1] * dEtx2[..., 1])
+    dden = torch.where((den > 1e-18)[..., None, :], dden, 0.0)
+    dr = dnum / torch.sqrt(dcl)[..., None, :] - (num * 0.5 / (dcl * torch.sqrt(dcl)))[..., None, :] * dden
+    return r, dr.transpose(-1, -2)
 
 
 def _refine_essential_pose(R0: torch.Tensor, t0: torch.Tensor,
                            h1: torch.Tensor, h2: torch.Tensor,
                            w: torch.Tensor, iters: int = 10):
-    """Gauss-Newton on the Sampson error over (rotation, t-direction): three
-    rotation and two t-tangent parameters, E = [t]x R; the Jacobian of the
-    5-parameter residual by forward-mode AD (``torch.func.jacfwd``, as the
-    JAX package uses ``jax.jacfwd``). Returns (R, unit t)."""
-    from torch.func import jacfwd
-
-    def sampson(E):
-        Ex1 = h1 @ E.T
-        Etx2 = h2 @ E
-        num = (h2 * Ex1).sum(-1)
-        den = Ex1[:, 0] ** 2 + Ex1[:, 1] ** 2 + Etx2[:, 0] ** 2 + Etx2[:, 1] ** 2
-        return num / torch.sqrt(torch.clamp(den, min=1e-18))
-
+    """Gauss-Newton on the Sampson error over (rotation, t-direction),
+    batched over leading dimensions: three rotation and two t-tangent
+    parameters, E = [t]x R, the Jacobian in closed form
+    (``_sampson_and_jacobian``). R0 [..., 3, 3], t0 [..., 3], h1, h2
+    [..., N, 3], w [..., N]. Returns (R, unit t)."""
     R, t = R0, t0
     e_x = torch.zeros_like(t)
-    e_x[0].fill_(1.0)
-    e_y = e_x.roll(1)
+    e_x[..., 0].fill_(1.0)
+    e_y = e_x.roll(1, -1)
+    eye5 = _eye(5, t)
     for _ in range(iters):
-        a = torch.where(t[0].abs() < 0.9, e_x, e_y)
+        a = torch.where(t[..., :1].abs() < 0.9, e_x, e_y)
         b1 = _unit(torch.linalg.cross(t, a), 1e-12)
         b2 = torch.linalg.cross(t, b1)
-
-        def res(p, R=R, t=t, b1=b1, b2=b2):
-            Rp = quat_to_matrix(so3_exp(p[:3])) @ R
-            tp = _unit(t + p[3] * b1 + p[4] * b2, 1e-12)
-            return sampson(so3_hat(tp) @ Rp)
-
-        p0 = torch.zeros(5, dtype=t.dtype, device=t.device)
-        r = res(p0)
-        J = jacfwd(res)(p0)                              # [N,5]
-        Jw = J * w[:, None]
-        H = J.T @ Jw + 1e-8 * _eye(5, J)
-        g = Jw.T @ r
-        H6 = torch.block_diag(H, torch.ones_like(H[:1, :1]))
-        dp = -solve6x6_spd(H6, torch.cat([g, torch.zeros_like(g[:1])]))[:5]
-        dp = torch.where(torch.isfinite(dp).all(), dp, 0.0)
-        R = quat_to_matrix(so3_exp(dp[:3])) @ R
-        t = _unit(t + dp[3] * b1 + dp[4] * b2, 1e-12)
+        r, J = _sampson_and_jacobian(R, t, b1, b2, h1, h2)   # [..., N], [..., N, 5]
+        Jw = J * w[..., None]
+        H = J.transpose(-1, -2) @ Jw + 1e-8 * eye5
+        g = (Jw.transpose(-1, -2) @ r[..., None])[..., 0]
+        H6 = torch.cat([torch.cat([H, torch.zeros_like(H[..., :1])], -1),
+                        torch.cat([torch.zeros_like(H[..., :1, :]),
+                                   torch.ones_like(H[..., :1, :1])], -1)], -2)
+        dp = -solve6x6_spd(H6, torch.cat([g, torch.zeros_like(g[..., :1])], -1))[..., :5]
+        dp = torch.where(torch.isfinite(dp).all(-1, keepdim=True), dp, 0.0)
+        R = quat_to_matrix(so3_exp(dp[..., :3])) @ R
+        t = _unit(t + dp[..., 3:4] * b1 + dp[..., 4:5] * b2, 1e-12)
     return R, t
 
 
@@ -470,103 +544,135 @@ def _f32(v) -> float:
     return float(np.float32(v))
 
 
+def _rows_at(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [P, M, ...] at idx [P, J] along dim 1 -> [P, J, ...]."""
+    return torch.take_along_dim(
+        x, idx.reshape(*idx.shape, *([1] * (x.dim() - 2))), dim=1)
+
+
 def essential_ransac(
     cam: CameraParams,
-    px_last: torch.Tensor,   # [N,2] pixels in the LAST frame
-    px_curr: torch.Tensor,   # [N,2] pixels in the CURRENT frame
-    valid: torch.Tensor,     # [N] bool correspondence mask
+    px_last: torch.Tensor,   # [P,N,2] (or [N,2]) pixels in the LAST frame
+    px_curr: torch.Tensor,   # [P,N,2] pixels in the CURRENT frame
+    valid: torch.Tensor,     # [P,N] bool correspondence mask
     gen: torch.Generator | None,
     thresh_px: float = 1.0,
     n_hypotheses: int = 256,
     lo_starts: int = 16,
     polish_iters: int = 10,
-    sample_idx: torch.Tensor | None = None,  # [H,8] injected minimal sets
+    sample_idx: torch.Tensor | None = None,  # [P,H,8] injected minimal sets
+    sample_logw: torch.Tensor | None = None,  # [P,N] PROSAC sampling bias
+    score_top_k: int | None = None,
+    noise: torch.Tensor | None = None,        # [P,H,N] sampling uniforms
 ) -> EssentialResult:
     """Essential-matrix RANSAC + pose recovery (cv::findEssentialMat +
-    cv::recoverPose semantics, the JAX package's one-tier program):
-    8-point hypotheses, projection to the manifold, sign-gated consensus
-    over the four decompositions at a loose 4x gate, LO-RANSAC annealed
-    4x -> 1x from the top ``lo_starts``, a GN Sampson polish kept if the
-    consensus holds, and the 50-unit distance gate on the winner."""
+    cv::recoverPose semantics), batched over P problems; a problem without
+    its leading dimension gives results without it. 8-point hypotheses;
+    with ``score_top_k`` < H, only the top ``score_top_k`` by raw Sampson
+    count go on (two-tier scoring); projection to the manifold, sign-gated
+    consensus over the four decompositions at a loose 4x gate, LO-RANSAC
+    annealed 4x -> 1x from the top ``lo_starts``, a GN Sampson polish kept
+    if the consensus holds, and the 50-unit distance gate on the winner.
+    Each batched ``eigh``/``svd`` synchronizes a CUDA stream once per call
+    (F7), so callers batch many problems into one call."""
+    single = valid.dim() == 1
+    if single:
+        px_last, px_curr, valid = px_last[None], px_curr[None], valid[None]
+        sample_idx = None if sample_idx is None else sample_idx[None]
+        sample_logw = None if sample_logw is None else sample_logw[None]
+        noise = None if noise is None else noise[None]
     x1 = _normalize_px(cam, px_last)
     x2 = _normalize_px(cam, px_curr)
-    h1, h2 = _homog(x1), _homog(x2)
+    h1, h2 = _homog(x1), _homog(x2)                      # [P,N,3]
+    hb1, hb2, vb = h1[:, None], h2[:, None], valid[:, None]   # per hypothesis
 
-    idx = sample_minimal_sets(gen, valid, n_hypotheses, 8, sample_idx)   # [H,8]
-    Es_raw = _eight_point_raw(x1[idx], x2[idx])
+    idx = sample_minimal_sets(gen, valid, n_hypotheses, 8, sample_idx,
+                              log_weights=sample_logw, noise=noise)  # [P,H,8]
+    Es_raw = _eight_point_raw(take_rows(x1, idx), take_rows(x2, idx))
 
     # thresholds in float32 arithmetic, as the JAX package computes them
     f32 = np.float32
     thresh_norm = f32(thresh_px) / (f32(0.5) * (f32(cam.fx) + f32(cam.fy)))
     loose = f32(4.0) * thresh_norm
-    Es, Us, Vts = _project_essential(Es_raw)
-    inl = (_sampson_sq(Es, h1, h2) < _f32(loose * loose)) & valid
+    loose2 = _f32(loose * loose)
+    score_k = n_hypotheses if score_top_k is None else min(n_hypotheses,
+                                                           score_top_k)
+    if score_k < n_hypotheses:
+        # two-tier scoring: the raw Sampson count picks the hypotheses that
+        # get the SVD and the cheirality vote
+        n_sampson = ((_sampson_sq(Es_raw, hb1, hb2) < loose2) & vb).sum(-1)
+        Es_raw = _rows_at(Es_raw, stable_topk(n_sampson, score_k)[1])
+    Es, Us, Vts = _project_essential(Es_raw)             # [P,K,3,3]
+    inl = (_sampson_sq(Es, hb1, hb2) < loose2) & vb
     Ras, Rbs, tus = _decompose_uv(Us, Vts)
-    scores, Rcs, tcs, goods = _score_candidates(Ras, Rbs, tus, inl, h1, h2)
+    scores, Rcs, tcs, goods = _score_candidates(Ras, Rbs, tus, inl, hb1, hb2)
 
-    rows = _kron_rows(h1, h2)                                            # [N,9]
+    rows = _kron_rows(h1, h2)[:, None]                   # [P,1,N,9]
 
     def gate_at(R_, t_, E_, thr2):
-        z1, z2 = _two_ray_depths(R_, t_, h1, h2)
-        m_ = (_sampson_sq(E_, h1, h2) < thr2) & valid & (z1 > 0) & (z2 > 0)
+        z1, z2 = _two_ray_depths(R_, t_, hb1, hb2)
+        m_ = (_sampson_sq(E_, hb1, hb2) < thr2) & vb & (z1 > 0) & (z2 > 0)
         return m_.sum(-1), m_
 
-    # LO chains from the top starts, batched over starts
-    n_starts = min(lo_starts, n_hypotheses)
+    # LO chains from the top starts, batched over problems and starts
+    n_starts = min(lo_starts, n_hypotheses, scores.shape[-1])
     topi = stable_topk(scores, n_starts)[1]
-    E_b, R_b, t_b, m_b = Es[topi], Rcs[topi], tcs[topi], goods[topi]
+    E_b, R_b, t_b, m_b = (_rows_at(x, topi) for x in (Es, Rcs, tcs, goods))
     for a in (2.0, 1.4, 1.0, 1.0):
         thr = f32(a) * thresh_norm
         thr2 = _f32(thr * thr)
         w_rows = torch.where(m_b[..., None], rows, 0.0)
-        e_fit = _smallest_eigvec(w_rows.transpose(-1, -2) @ w_rows).reshape(-1, 3, 3)
-        E_f, Uf, Vtf = _project_essential(e_fit)
+        e_fit = _smallest_eigvec(w_rows.transpose(-1, -2) @ w_rows)
+        E_f, Uf, Vtf = _project_essential(e_fit.reshape(*e_fit.shape[:-1], 3, 3))
         Ra_f, Rb_f, tu_f = _decompose_uv(Uf, Vtf)
-        inl_f = (_sampson_sq(E_f, h1, h2) < thr2) & valid
-        n_f, R_f, t_f, m_f = _score_candidates(Ra_f, Rb_f, tu_f, inl_f, h1, h2)
+        inl_f = (_sampson_sq(E_f, hb1, hb2) < thr2) & vb
+        n_f, R_f, t_f, m_f = _score_candidates(Ra_f, Rb_f, tu_f, inl_f, hb1, hb2)
         n_b, m_b2 = gate_at(R_b, t_b, E_b, thr2)
         take = n_f >= n_b
-        E_b = torch.where(take[:, None, None], E_f, E_b)
-        R_b = torch.where(take[:, None, None], R_f, R_b)
-        t_b = torch.where(take[:, None], t_f, t_b)
-        m_b = torch.where(take[:, None], m_f, m_b2)
+        E_b = torch.where(take[..., None, None], E_f, E_b)
+        R_b = torch.where(take[..., None, None], R_f, R_b)
+        t_b = torch.where(take[..., None], t_f, t_b)
+        m_b = torch.where(take[..., None], m_f, m_b2)
     tn2 = _f32(thresh_norm * thresh_norm)
     n_j, m_j = gate_at(R_b, t_b, E_b, tn2)
-    j = torch.argmax(n_j)
-    E, R, t, mask, n_best = E_b[j], R_b[j], t_b[j], m_j[j], n_j[j]
+    j = torch.argmax(n_j, dim=1, keepdim=True)           # first max, [P,1]
+    E, R, t, mask, n_best = (_rows_at(x, j)[:, 0]
+                             for x in (E_b, R_b, t_b, m_j, n_j))
 
     # GN polish on the manifold, kept if the gated consensus holds
     Rr, tr = _refine_essential_pose(R, t, h1, h2, mask.to(h1.dtype), polish_iters)
     E_ref = so3_hat(tr) @ Rr
     z1r, z2r = _two_ray_depths(Rr, tr, h1, h2)
     n_ref = ((_sampson_sq(E_ref, h1, h2) < tn2) & valid
-             & (z1r > 0) & (z2r > 0)).sum()
+             & (z1r > 0) & (z2r > 0)).sum(-1)
     better = n_ref >= n_best
-    R = torch.where(better, Rr, R)
-    t = torch.where(better, tr, t)
-    E = torch.where(better, E_ref, E)
+    R = torch.where(better[:, None, None], Rr, R)
+    t = torch.where(better[:, None], tr, t)
+    E = torch.where(better[:, None, None], E_ref, E)
     # cv::recoverPose's 50-unit distance gate on the chosen model
     z1f, z2f = _two_ray_depths(R, t, h1, h2)
     dist_mask = ((_sampson_sq(E, h1, h2) < tn2) & valid & (z1f > 0) & (z2f > 0)
                  & (z1f < 50.0) & (z2f < 50.0))
-    n_inliers = dist_mask.sum().to(torch.int32)
-    ok = (n_inliers > 0) & torch.isfinite(R).all() & torch.isfinite(t).all()
-    return EssentialResult(R, t, E, dist_mask, n_inliers, ok)
+    n_inliers = dist_mask.sum(-1).to(torch.int32)
+    ok = ((n_inliers > 0) & torch.isfinite(R).all(-1).all(-1)
+          & torch.isfinite(t).all(-1))
+    res = EssentialResult(R, t, E, dist_mask, n_inliers, ok)
+    return EssentialResult(*(x[0] for x in res)) if single else res
 
 
-def nanmedian(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.nanmedian`` of a 1-D tensor: the mean of the two middle values
-    for an even count (``torch.nanmedian`` returns the lower one); NaN when
+def nanmedian(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``jnp.nanmedian`` along ``dim``: the mean of the two middle values
+    for an even count (``torch.nanmedian`` returns the lower one); NaN where
     every entry is NaN."""
-    a = torch.sort(x).values                         # NaN sorts last
-    cnt = (~torch.isnan(a)).sum().to(x.dtype)
+    a = torch.sort(x, dim=dim).values                # NaN sorts last
+    cnt = (~torch.isnan(a)).sum(dim, keepdim=True).to(x.dtype)
     q = 0.5 * (cnt - 1.0)
     low, high = torch.floor(q), torch.ceil(q)
     hw = q - low
     lw = 1.0 - hw
     lo_i = torch.clamp(torch.minimum(low, cnt - 1.0), min=0.0).long()
     hi_i = torch.clamp(torch.minimum(high, cnt - 1.0), min=0.0).long()
-    return a.gather(0, lo_i[None])[0] * lw + a.gather(0, hi_i[None])[0] * hw
+    return (a.gather(dim, lo_i) * lw + a.gather(dim, hi_i) * hw).squeeze(dim)
 
 
 def essential_scale_from_depth(cam: CameraParams, res: EssentialResult,

@@ -1,6 +1,5 @@
 """Global bundle adjustment: matrix-free Schur-complement Gauss-Newton with
-fixed-count PCG (counterpart of ``visionx_slam_tpu/models/global_ba.py``,
-single gauge group).
+fixed-count PCG (counterpart of ``visionx_slam_tpu/models/global_ba.py``).
 
 - Hll is block-diagonal [L,3,3] and Hpp [K,6,6]; the landmark sums are one
   ``index_add_`` into an L+1-row buffer whose spare row takes the
@@ -9,6 +8,11 @@ single gauge group).
 - S v = (Hpp + lambda) v - W Hll^-1 W^T v is applied as an operator inside
   PCG with a block-Jacobi (Hpp + lambda)^-1 preconditioner; the oldest
   alive keyframe is the gauge and stays fixed.
+- ``gauge_group`` labels the keyframe slots of a map merged from several
+  independent lane maps: each group freezes its own oldest keyframe, and
+  every scalar of the solve (CG step sizes, the finite check, cost and
+  convergence) is kept per group by ``index_add_`` over the labels, so one
+  merged solve equals the per-lane solves.
 
 On CUDA ``index_add_`` accumulates with atomics, so the landmark sums (and
 everything downstream) change order, and last bits, from run to run.
@@ -64,10 +68,13 @@ def map_reproj_error(ms: MapState, cam: CameraParams):
 
 
 def global_ba(ms: MapState, cam: CameraParams,
-              opts: GlobalBAOptions = GlobalBAOptions()):
+              opts: GlobalBAOptions = GlobalBAOptions(),
+              gauge_group: torch.Tensor | None = None):
     """Refine keyframe poses and landmarks of ``ms``; returns
     (MapState, GlobalBAStats). ``final_cost`` is the cost at the start of
-    the last GN iteration, as in the JAX package."""
+    the last GN iteration, as in the JAX package (summed over groups).
+    ``gauge_group``: optional [K] int lane label per keyframe slot of a
+    merged multi-lane map (module docstring); None is one group."""
     K = ms.kf_capacity
     L = ms.lm_physical
     N = ms.n_features
@@ -84,18 +91,52 @@ def global_ba(ms: MapState, cam: CameraParams,
     lm_opt = ms.lm_alive & (msl.landmark_observation_counts(ms)
                             >= opts.min_point_observations)
 
-    # gauge: freeze the oldest alive keyframe
-    ids = torch.where(alive_kf, ms.kf_id, torch.iinfo(torch.int32).max)
-    fixed_mask = torch.arange(K, device=dev) == torch.argmin(ids)
+    # gauge: freeze the oldest alive keyframe (of each group; ties to the
+    # lowest slot)
+    big = torch.iinfo(torch.int32).max
+    ids = torch.where(alive_kf, ms.kf_id, big)
+    slots = torch.arange(K, device=dev)
+    single = gauge_group is None
+    if single:
+        fixed_mask = slots == torch.argmin(ids)
+    else:
+        grp = gauge_group.to(device=dev, dtype=torch.long)
+        group_min = torch.full((K,), big, dtype=ids.dtype, device=dev)
+        group_min.scatter_reduce_(0, grp, ids, "amin")
+        is_min = alive_kf & (ids == group_min[grp])
+        first = torch.full((K,), K, dtype=torch.long, device=dev)
+        first.scatter_reduce_(0, grp, torch.where(is_min, slots, K), "amin")
+        fixed_mask = is_min & (slots == first[grp])
     free_kf = alive_kf & ~fixed_mask
     free6 = free_kf[:, None]
+
+    def seg_k(x_k):   # per-keyframe [K] -> per group (a scalar when single)
+        if single:
+            return x_k.sum()
+        return torch.zeros(K, dtype=x_k.dtype, device=dev).index_add_(0, grp, x_k)
+
+    def to_k(v_g):    # per group -> per keyframe
+        return v_g if single else v_g[grp]
+
+    def seg_rows(x):  # [K, ...] summed per group
+        return x.sum() if single else seg_k(x.reshape(K, -1).sum(1))
+
+    def gdot(a, b):   # per-group dot product of [K,6] vectors, per keyframe
+        return (a * b).sum() if single else to_k(seg_rows(a * b))[:, None]
 
     kk = torch.arange(K, device=dev)[:, None].expand(K, N).reshape(-1)
     opt_obs_mask = (has_lm & lm_opt[lm_idx]).reshape(-1)
     seg = torch.where(opt_obs_mask, lm_idx.reshape(-1), L)      # spare row L
 
-    has_any_obs = (has_lm & ms.lm_alive[lm_idx]).sum() > 0
-    enabled = (alive_kf.sum() >= 2) & has_any_obs
+    has_any_obs = seg_k((has_lm & ms.lm_alive[lm_idx]).sum(1)) > 0
+    enabled = (seg_k(alive_kf.long()) >= 2) & has_any_obs
+    if single:
+        apply_lm = lambda a: a
+    else:
+        # a landmark's group: that of its (same-lane) observations
+        lm_grp = torch.zeros(L + 1, dtype=torch.long, device=dev)
+        lm_grp.scatter_reduce_(0, seg, grp[kk], "amax")
+        apply_lm = lambda a: a[lm_grp[:L]][None, :]
 
     def seg_sum_lm(per_obs):  # [O,d] -> [L,d]
         buf = torch.zeros((L + 1, per_obs.shape[-1]), dtype=dt, device=dev)
@@ -122,14 +163,15 @@ def global_ba(ms: MapState, cam: CameraParams,
     eye3 = torch.eye(3, dtype=dt, device=dev)
     eye6 = torch.eye(6, dtype=dt, device=dev)
     q, t, lm_pos = ms.kf_q, ms.kf_t, ms.lm_pos
-    last_cost = torch.tensor(torch.finfo(torch.float32).max, dtype=dt, device=dev)
+    last_cost = torch.full(enabled.shape, torch.finfo(torch.float32).max,
+                           dtype=dt, device=dev)
     done = ~enabled
-    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    iters = torch.zeros(enabled.shape, dtype=torch.int32, device=dev)
     cost = total_obs = None
     for _ in range(opts.max_iterations):
         err, pc, obs, w = residuals(q, t, lm_pos)
-        cost = (w * (err * err).sum(-1)).sum()
-        total_obs = obs.sum().to(torch.int32)
+        cost = seg_rows(w * (err * err).sum(-1))
+        total_obs = seg_rows(obs.to(torch.int32)).to(torch.int32)
 
         # per-observation Jacobians
         Jp_proj = _proj_jacobian(cam, pc)                        # [K,N,2,3]
@@ -183,20 +225,24 @@ def global_ba(ms: MapState, cam: CameraParams,
         r = rhs
         z = prec(r)
         p = z
-        rz = (r * z).sum()
+        rz = gdot(r, z)
         for _ in range(opts.cg_iterations):
             Ap = S_mv(p)
-            pAp = (p * Ap).sum()
+            pAp = gdot(p, Ap)
             ok = (pAp > 1e-30) & (rz > 1e-30)
             alpha = torch.where(ok, rz / torch.clamp(pAp, min=1e-30), 0.0)
             x = x + alpha * p
             r = r - alpha * Ap
             z = prec(r)
-            rz_new = (r * z).sum()
+            rz_new = gdot(r, z)
             beta = torch.where(ok, rz_new / torch.clamp(rz, min=1e-30), 0.0)
             p = z + beta * p
             rz = rz_new
-        dxp = torch.where(torch.isfinite(x).all(), x, 0.0)
+        if single:
+            dxp = torch.where(torch.isfinite(x).all(), x, 0.0)
+        else:
+            bad = seg_rows((~torch.isfinite(x)).to(torch.int32)) > 0
+            dxp = torch.where(to_k(bad)[:, None], 0.0, x)
 
         # back-substitute landmarks: dxl = Hll^-1 (bl - W^T dxp)
         dxl = (Hll_inv @ (bl - WT_v(dxp))[..., None])[..., 0]
@@ -204,9 +250,9 @@ def global_ba(ms: MapState, cam: CameraParams,
                           dxl, 0.0)
 
         apply = ~done & enabled
-        dxp = torch.where((free_kf & apply)[:, None], dxp, 0.0)
+        dxp = torch.where((free_kf & to_k(apply))[:, None], dxp, 0.0)
         newp = se3_compose(se3_exp(dxp), Pose(q, t))
-        lm_pos = torch.where(apply, lm_pos + dxl.T, lm_pos)
+        lm_pos = torch.where(apply_lm(apply), lm_pos + dxl.T, lm_pos)
         q, t = newp.q, newp.t
 
         converged = (total_obs == 0) | ((last_cost - cost).abs() < 1e-6 * last_cost)
@@ -215,5 +261,5 @@ def global_ba(ms: MapState, cam: CameraParams,
         last_cost = cost
 
     out = ms._replace(kf_q=q, kf_t=t, lm_pos=lm_pos)
-    return out, GlobalBAStats(iterations=iters, final_cost=cost,
-                              total_obs=total_obs)
+    return out, GlobalBAStats(iterations=iters.max(), final_cost=cost.sum(),
+                              total_obs=total_obs.sum())

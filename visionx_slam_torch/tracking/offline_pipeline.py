@@ -1,23 +1,38 @@
-"""Offline SLAM over a whole RGB-D sequence as batched stages (the RGB-D,
-single-sequence path of ``visionx_slam_tpu/tracking/offline_pipeline.py``).
+"""Offline SLAM over whole sequences as batched stages (the counterpart of
+``visionx_slam_tpu/tracking/offline_pipeline.py``, without the monocular
+loop closure).
 
 Stages, as in the JAX package:
 
 1. ORB over all frames, in chunks of ``extract_chunk`` frames (K1 runs on
    the whole chunk's atlases at once);
-2. consecutive-pair Hamming matching and 3. RGB-D PnP RANSAC, batched over
-   chunks of ``pair_chunk`` pairs;
-4. absolute poses by a log-step prefix composition over SE(3);
+2. consecutive-pair Hamming matching and 3. the relative pose, batched over
+   chunks of ``pair_chunk`` pairs: RGB-D PnP RANSAC, or (``monocular``)
+   essential-matrix RANSAC and two-view triangulation, whose unit-baseline
+   scales a chain of shared-feature depth ratios ties together;
+4. absolute poses by a log-step, segmented prefix composition over SE(3);
 5. the keyframe policy (a scalar recurrence, run on the host);
-6. the keyframe chain (direct keyframe-pair PnP), ``build_keyframe_map``
-   and its observation links;
+6. the keyframe chain (direct keyframe-pair PnP; the VO chain in mono),
+   ``build_keyframe_map`` and its observation links;
 7. one Gauss-Newton pass of ``global_ba``;
-8. a batched re-track of every frame against its keyframe's landmarks.
+8. a batched re-track of every frame against its keyframe's landmarks (in
+   mono, also the following keyframe's, with DLT hypotheses).
 
-A failed pair freezes its relative pose at identity. Randomness comes from
-``torch.Generator``s seeded per stage (29, 31, 37 — the JAX package's key
-seeds); the bits differ from ``jax.random``'s, so results agree with the JAX
-package statistically, not bit for bit.
+**Folded lanes** (``lanes=B``): the input is B sequences of T_lane frames
+concatenated along the frame axis, and every stage runs over the folded
+axis. Lanes stay apart by construction: pairs across a lane boundary never
+track, the prefix compositions reset at lane starts, each lane keeps its
+own last ``kf_capacity`` keyframes, and the refine is one ``global_ba``
+gauge-grouped per lane. RANSAC draws depend only on the stage's seed and
+the index within the lane (each stage draws the uniforms of one lane and
+every lane gathers its rows), so lane b draws what a single run of its
+frames would draw.
+
+A failed pair freezes its relative pose at identity (in mono it inherits
+its predecessor's). Randomness comes from ``torch.Generator``s seeded per
+stage (29, 31, 37 — the JAX package's key seeds); the bits differ from
+``jax.random``'s, so results agree with the JAX package statistically, not
+bit for bit.
 """
 
 from __future__ import annotations
@@ -28,7 +43,13 @@ import numpy as np
 import torch
 
 from ..models import matching
-from ..models.estimation import pnp_ransac
+from ..models.estimation import (
+    _normalize_px,
+    essential_ransac,
+    nanmedian,
+    pnp_ransac,
+    triangulate_dlt,
+)
 from ..models.global_ba import GlobalBAOptions, global_ba
 from ..models.orb_torch import orb_extract
 from ..ops.camera import CameraParams, backproject, project_pinhole
@@ -36,6 +57,7 @@ from ..ops.index import stable_argsort, take_rows
 from ..ops.se3 import (
     Pose,
     identity_pose,
+    matrix_to_quat,
     se3_apply,
     se3_compose,
     se3_inverse,
@@ -54,8 +76,8 @@ class OfflineOut(NamedTuple):
     n_inliers: torch.Tensor    # [T] int32
     parallax: torch.Tensor     # [T] float32 (vs previous frame)
     is_keyframe: torch.Tensor  # [T] bool
-    n_keyframes: torch.Tensor  # [] int32
-    n_landmarks: torch.Tensor  # [] int32
+    n_keyframes: torch.Tensor  # [] int32 ([B] per lane when folded)
+    n_landmarks: torch.Tensor  # [] int32 ([B] per lane when folded)
 
 
 def _chunked(fn, chunk: int, *args):
@@ -69,15 +91,22 @@ def _chunked(fn, chunk: int, *args):
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
-def _compose_scan(q: torch.Tensor, t: torch.Tensor) -> Pose:
-    """Inclusive prefix composition prefix[i] = value[i] ∘ prefix[i-1] by
-    log-step doubling (the combine of the JAX associative scan)."""
+def _segmented_compose_scan(q: torch.Tensor, t: torch.Tensor,
+                            flag: torch.Tensor) -> Pose:
+    """Inclusive prefix composition by log-step doubling with segment
+    resets: prefix[i] = value[i] where ``flag[i]`` (a segment start, whose
+    value is its own anchor), else value[i] ∘ prefix[i-1]. The flagged
+    combine is associative (the segmented-scan construction of the JAX
+    package's ``associative_scan``); with no flag after element 0 it is
+    the plain composition."""
     n = q.shape[0]
     d = 1
     while d < n:
         c = se3_compose(Pose(q[d:], t[d:]), Pose(q[:-d], t[:-d]))
-        q = torch.cat([q[:d], c.q])
-        t = torch.cat([t[:d], c.t])
+        f = flag[d:, None]
+        q = torch.cat([q[:d], torch.where(f, q[d:], c.q)])
+        t = torch.cat([t[:d], torch.where(f, t[d:], c.t)])
+        flag = torch.cat([flag[:d], flag[d:] | flag[:-d]])
         d *= 2
     return Pose(q, t)
 
@@ -86,29 +115,43 @@ def _normalized(q: torch.Tensor) -> torch.Tensor:
     return q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=1e-12)
 
 
-def _keyframe_policy(opts: TrackingOptions, n_inl, parallax, ok) -> np.ndarray:
+def _keyframe_policy(opts: TrackingOptions, n_inl, parallax, ok,
+                     lane_start=None) -> np.ndarray:
     """The reference keyframe policy (tracking.cpp:562-575) over per-pair
     stats, accumulating parallax since the last keyframe. A scalar
     recurrence of T-1 steps: it runs on the host, in float32 like the JAX
-    scan. Returns is_kf [T] (frame 0 is a keyframe)."""
+    scan. ``lane_start`` [T-1] (folded lanes): pair j's second frame starts
+    a lane, so it is a keyframe with a fresh carry. Returns is_kf [T]
+    (frame 0 is a keyframe)."""
     n_inl = n_inl.cpu().numpy()
     parallax = parallax.cpu().numpy().astype(np.float32)
     ok = ok.cpu().numpy()
+    if lane_start is None:
+        lane_start = np.zeros(len(n_inl), bool)
     acc = np.float32(0.0)
     last_kf = 0
     is_kf = np.zeros(len(n_inl) + 1, bool)
     is_kf[0] = True
     for j in range(len(n_inl)):
         i = j + 1
-        acc = np.float32(acc + parallax[j])
-        need = (bool(ok[j]) and n_inl[j] >= opts.min_keyframe_inliers
-                and acc >= opts.min_parallax
-                and (i - last_kf) >= opts.min_keyframe_gap)
+        acc = np.float32(0.0) if lane_start[j] else np.float32(acc + parallax[j])
+        need = bool(lane_start[j]) or (
+            bool(ok[j]) and n_inl[j] >= opts.min_keyframe_inliers
+            and acc >= opts.min_parallax
+            and (i - last_kf) >= opts.min_keyframe_gap)
         if need:
             acc = np.float32(0.0)
             last_kf = i
         is_kf[i] = need
     return is_kf
+
+
+def default_lane_kf_capacity(T: int) -> int:
+    """Keyframe capacity for a T-frame lane: the keyframe policy's
+    ``min_keyframe_gap`` of 3 bounds a lane's keyframes at ceil(T/3) + 1,
+    so ceil(T/3) + 8 never overflows at the default options; between 16
+    and 128 (the JAX package's rule)."""
+    return max(16, min(128, -(-T // 3) + 8))
 
 
 def build_keyframe_map(
@@ -123,11 +166,17 @@ def build_keyframe_map(
     kf_depth: torch.Tensor,    # [K,N]
     lm_capacity: int,
     pair_chunk: int = 16,
+    pair_valid: torch.Tensor | None = None,  # [K-1] (False across lanes)
+    link_strides: tuple[int, ...] = (1,),
 ):
     """A MapState from posed keyframe observations in one batch:
     depth-backprojected landmarks with contiguous allocation in
-    (keyframe, feature) order, then observation links from consecutive
-    keyframe matching. Returns (MapState, PairLinks)."""
+    (keyframe, feature) order, then observation links from matching each
+    keyframe with the next (and, per extra entry of ``link_strides``, with
+    the keyframe that many slots ahead: a third view for mono BA).
+    ``pair_valid`` masks the keyframe pairs of a lane-merged map that
+    cross a lane boundary. Returns (MapState, PairLinks) of the stride-1
+    pass."""
     K, N = kf_fvalid.shape
     dev = kf_q.device
     kvalid = kf_id >= 0
@@ -168,40 +217,61 @@ def build_keyframe_map(
         next_lm=i32(torch.clamp(n_created, max=L)),
         lm_dropped=i32(want_flat.sum() - n_created),
     )
-    ms, adopter, creator = _link_consecutive_keyframes(ms, cam, opts, pair_chunk)
+    ms, adopter, creator = _link_consecutive_keyframes(ms, cam, opts, pair_chunk,
+                                                       pair_valid)
+    # each further stride adopts into the features still FREE; the links
+    # returned stay the stride-1 structure
+    for s in link_strides:
+        if s == 1:
+            continue
+        pv = None
+        if pair_valid is not None:
+            # same lane for stride s: the stride-1 lane mask composed
+            pv = pair_valid[:K - s]
+            for j in range(1, s):
+                pv = pv & pair_valid[j:j + K - s]
+        ms, _, _ = _link_consecutive_keyframes(ms, cam, opts, pair_chunk, pv,
+                                               stride=s)
     links = PairLinks(created=ok_alloc.reshape(K, N), adopter=adopter,
                       creator=creator, order=order, sidx=sidx)
     return ms, links
 
 
 def _link_consecutive_keyframes(ms: MapState, cam: CameraParams,
-                                opts: TrackingOptions, pair_chunk: int = 16):
-    """Match each keyframe to the next and point the later keyframe's
-    matched FREE features at the earlier one's landmarks, gated by
-    reprojection into the later keyframe; one query per target feature
-    (best distance, then lowest query index). ``lm_prev`` is read from the
-    pre-adoption table, so adoption never chains within a pass. Returns
-    (ms, adopter [K,N], creator [K,N])."""
+                                opts: TrackingOptions, pair_chunk: int = 16,
+                                pair_valid: torch.Tensor | None = None,
+                                stride: int = 1):
+    """Match each keyframe to the one ``stride`` slots ahead and point the
+    later keyframe's matched FREE features at the earlier one's landmarks,
+    gated by reprojection into the later keyframe; one query per target
+    feature (best distance, then lowest query index). ``lm_prev`` is read
+    from the pre-adoption table, so adoption never chains within a pass.
+    ``pair_valid`` [K-stride] masks pairs (lane-merged maps: across
+    lanes). Returns (ms, adopter [K,N], creator [K,N])."""
     K = ms.kf_capacity
     N = ms.n_features
     L = ms.lm_physical
+    s = stride
     dev = ms.kf_q.device
     res = matching.MatchResult(*_chunked(
         lambda *a: tuple(matching.match_frames(*a)), pair_chunk,
-        ms.kf_desc[:-1], ms.kf_fvalid[:-1], ms.kf_desc[1:], ms.kf_fvalid[1:]))
+        ms.kf_desc[:K - s], ms.kf_fvalid[:K - s], ms.kf_desc[s:],
+        ms.kf_fvalid[s:]))
 
-    lm_prev = ms.kf_feat_lm[:-1].long()                      # [K-1,N]
-    lm_next = ms.kf_feat_lm[1:].long()
+    lm_prev = ms.kf_feat_lm[:K - s].long()                   # [K-s,N]
+    lm_next = ms.kf_feat_lm[s:].long()
     lmi = lm_prev.clamp(0, L - 1)
-    pw = ms.lm_pos[:, lmi].permute(1, 2, 0)                  # [K-1,N,3]
+    pw = ms.lm_pos[:, lmi].permute(1, 2, 0)                  # [K-s,N,3]
     uv, ok_z, _ = project_pinhole(
-        cam, Pose(ms.kf_q[1:, None], ms.kf_t[1:, None]), pw)
-    px_at = take_rows(ms.kf_px[1:].transpose(1, 2), res.idx)
+        cam, Pose(ms.kf_q[s:, None], ms.kf_t[s:, None]), pw)
+    px_at = take_rows(ms.kf_px[s:].transpose(1, 2), res.idx)
     err = torch.linalg.norm(uv - px_at, dim=-1)
     target_prev = torch.gather(lm_next, 1, res.idx)
     adopt = (res.valid & (lm_prev >= 0) & ok_z
              & (err <= opts.triangulation_max_reproj_error)
              & (target_prev < 0))
+    if pair_valid is not None:
+        adopt = adopt & pair_valid[:, None]
 
     # dedupe: one query per target feature (best distance first)
     combo = torch.where(adopt, res.idx.float() * 512.0
@@ -216,14 +286,14 @@ def _link_consecutive_keyframes(ms: MapState, cam: CameraParams,
 
     # scatter into a buffer with one spare column for the non-adopting rows
     rows = torch.where(adopt, res.idx, N)
-    new_next = torch.cat([lm_next, lm_next.new_zeros(K - 1, 1)], 1)
+    new_next = torch.cat([lm_next, lm_next.new_zeros(K - s, 1)], 1)
     new_next.scatter_(1, rows, torch.where(adopt, lm_prev, 0))
-    kf_feat_lm = torch.cat([ms.kf_feat_lm[:1], new_next[:, :N].to(torch.int32)])
+    kf_feat_lm = torch.cat([ms.kf_feat_lm[:s], new_next[:, :N].to(torch.int32)])
 
-    qidx = torch.arange(N, device=dev).expand(K - 1, N)
-    creator_rows = torch.full((K - 1, N + 1), -1, dtype=torch.int32, device=dev)
+    qidx = torch.arange(N, device=dev).expand(K - s, N)
+    creator_rows = torch.full((K - s, N + 1), -1, dtype=torch.int32, device=dev)
     creator_rows.scatter_(1, rows, torch.where(adopt, qidx, -1).to(torch.int32))
-    none = torch.full((1, N), -1, dtype=torch.int32, device=dev)
+    none = torch.full((s, N), -1, dtype=torch.int32, device=dev)
     creator = torch.cat([none, creator_rows[:, :N]])
     adopter = torch.cat([torch.where(adopt, res.idx, -1).to(torch.int32), none])
 
@@ -233,6 +303,15 @@ def _link_consecutive_keyframes(ms: MapState, cam: CameraParams,
                    torch.ones(adopt.numel(), dtype=obs.dtype, device=dev))
     return (ms._replace(kf_feat_lm=kf_feat_lm, lm_obs=obs[:L]), adopter,
             creator)
+
+
+def _lane_draws(gen_seed: int, rows: int, n_hyp: int, n: int,
+                device) -> torch.Tensor:
+    """The uniforms of one lane's RANSAC problems of a stage: [rows, H, n]
+    from a generator seeded ``gen_seed``; problem j of every lane uses row
+    j (its index within the lane)."""
+    gen = torch.Generator(device=device).manual_seed(gen_seed)
+    return torch.rand((rows, n_hyp, n), generator=gen, device=device)
 
 
 def build_offline_pipeline(
@@ -247,23 +326,51 @@ def build_offline_pipeline(
     # against the refined landmarks and dominates the final ATE
     refine_iterations: int = 1,
     gba_cg_iterations: int = 8,
+    monocular: bool = False,
     retrack_refine_iters: int = 3,
     retrack_hypotheses: int = 8,
+    mono_pair_hypotheses: int = 128,
+    mono_lo_starts: int = 16,
+    mono_polish_iters: int = 10,
+    mono_score_top_k: int | None = None,
+    mono_retrack_two_kf: bool = True,
+    mono_sample_bias: float = 0.0,
+    mono_link_strides: tuple[int, ...] = (1, 2),
+    mono_loop_pairs: int = 0,
+    lanes: int = 1,
 ):
     """Returns run(cam, images [T,H,W] u8, depths [T,H,W] f32, timings=None)
     -> (MapState, OfflineOut), on the device of the inputs; its stages are
     also exposed as run.pre, run.refine and run.post. ``timings``: if a dict
     is given, it is filled with each stage's seconds (the stages then
-    synchronize the device at their ends)."""
-    N = n_features_cap
-    K = kf_capacity
-    L = K * N  # the allocator's worst case: no landmark is ever dropped
+    synchronize the device at their ends).
 
-    def pair_pose(cam, gen, pts3d, pts2d, vv, dcur, refine):
+    ``monocular``: the depth input is ignored (pass zeros); poses and
+    landmarks live in the scale of the chain (2 m median depth at each
+    lane's first pair). The ``mono_*`` knobs are the JAX package's: the
+    pair stage's essential RANSAC budget (hypotheses, LO starts, polish
+    steps, two-tier width, PROSAC bias exp(-distance / bias)), the link
+    strides of the map, and the re-track against the following keyframe
+    too. Loop closure (``mono_loop_pairs`` > 0) is not ported.
+
+    ``lanes=B``: the input is B lanes of T/B frames concatenated (module
+    docstring); ``kf_capacity`` is per lane and the landmark table holds
+    B x ``kf_capacity`` x ``n_features_cap`` rows, the allocator's worst
+    case. The per-lane counts of ``OfflineOut`` are then [B];
+    ``run_offline_pipeline_batched`` splits the result per lane."""
+    if mono_loop_pairs > 0:
+        raise NotImplementedError("the monocular loop closure is not ported")
+    B = lanes
+    N = n_features_cap
+    K = kf_capacity                     # per lane
+    KT = B * K                          # keyframe slots of the folded map
+    L = B * K * N  # the allocator's worst case: no landmark is ever dropped
+
+    def pair_pose(cam, pts3d, pts2d, vv, dcur, refine, noise):
         ident = identity_pose((len(vv),), device=vv.device)
-        sol = pnp_ransac(cam, pts3d, pts2d, vv, gen, opts.max_reproj_error,
+        sol = pnp_ransac(cam, pts3d, pts2d, vv, None, opts.max_reproj_error,
                          n_hypotheses=pnp_hypotheses, refine_iters=refine,
-                         init_pose=ident, depth_curr=dcur)
+                         init_pose=ident, depth_curr=dcur, noise=noise)
         ok = (sol.ok & (sol.n_inliers >= opts.min_inliers)
               & torch.isfinite(sol.pose.q).all(-1)
               & torch.isfinite(sol.pose.t).all(-1))
@@ -273,55 +380,99 @@ def build_offline_pipeline(
         clock = clock or _StageClock(None, images.device)
         dev = images.device
         T = images.shape[0]
+        if T % B:
+            raise ValueError(f"{T} frames do not fold into {B} lanes")
+        T_lane = T // B
         ident = identity_pose(device=dev)
+        pair_ix = torch.arange(T - 1, device=dev)
+        wl_pair = pair_ix % T_lane                  # index within the lane
+        # pair i crosses a lane boundary iff frame i+1 starts a lane
+        pair_xlane = wl_pair == T_lane - 1
+        xlane_np = (np.arange(T - 1) % T_lane) == T_lane - 1
 
         # ---- 1. extraction in chunks of frames ----
         feats = []
         for i in range(0, T, extract_chunk):
             px_c, _, desc_c, valid_c = orb_extract(
                 images[i:i + extract_chunk], n_slots=N)
-            dfeat_c = stages.sample_depth_image(depths[i:i + extract_chunk],
-                                                px_c, valid_c)
+            dfeat_c = (None if monocular else stages.sample_depth_image(
+                depths[i:i + extract_chunk], px_c, valid_c))
             feats.append((px_c, desc_c, valid_c, dfeat_c))
-        px, desc, valid, dfeat = (torch.cat(p) for p in zip(*feats))
+        px, desc, valid = (torch.cat(p) for p in list(zip(*feats))[:3])
+        dfeat = None if monocular else torch.cat([f[3] for f in feats])
         clock.lap("extract")
 
         # ---- 2+3. consecutive-pair matching + relative pose (light GN
         # polish: this pose only seeds the keyframe policy and the VO
         # chain; the re-track stage re-estimates every frame) ----
-        gen = torch.Generator(device=dev).manual_seed(29)
+        if monocular:
+            u_pair = _lane_draws(29, T_lane, mono_pair_hypotheses, N, dev)
+            (rq, rt, n_inl, ok, n_matches, parallax, zq_u, zn_u,
+             midx) = _chunked(
+                lambda *a: pair_track_mono(cam, u_pair, *a), pair_chunk,
+                desc[:-1], valid[:-1], desc[1:], valid[1:], px[:-1], px[1:],
+                wl_pair)
+            rt, dfeat = _scale_chain(zq_u, zn_u, midx, rt, pair_xlane,
+                                     pair_ix, T_lane)
+        else:
+            u_pair = _lane_draws(29, T_lane, pnp_hypotheses, N, dev)
 
-        def pair_track(dq, vq, dt, vt, pxq, pxt, ddq, ddt):
-            m = matching.match_frames(dq, vq, dt, vt)
-            pc = backproject(cam, pxq, ddq)
-            pvalid = (m.valid & (ddq >= stages.MIN_DEPTH)
-                      & (ddq <= stages.MAX_DEPTH))
-            pose, n_i, ok_i = pair_pose(cam, gen, pc, take_rows(pxt, m.idx),
-                                        pvalid, torch.gather(ddt, 1, m.idx), 2)
-            return (pose.q, pose.t, n_i, ok_i,
-                    m.valid.sum(-1).to(torch.int32),
-                    stages.parallax_px(pxq, pxt, m))
+            def pair_track(dq, vq, dt, vt, pxq, pxt, ddq, ddt, wl):
+                m = matching.match_frames(dq, vq, dt, vt)
+                pc = backproject(cam, pxq, ddq)
+                pvalid = (m.valid & (ddq >= stages.MIN_DEPTH)
+                          & (ddq <= stages.MAX_DEPTH))
+                pose, n_i, ok_i = pair_pose(
+                    cam, pc, take_rows(pxt, m.idx), pvalid,
+                    torch.gather(ddt, 1, m.idx), 2, u_pair[wl])
+                return (pose.q, pose.t, n_i, ok_i,
+                        m.valid.sum(-1).to(torch.int32),
+                        stages.parallax_px(pxq, pxt, m))
 
-        rq, rt, n_inl, ok, n_matches, parallax = _chunked(
-            pair_track, pair_chunk,
-            desc[:-1], valid[:-1], desc[1:], valid[1:],
-            px[:-1], px[1:], dfeat[:-1], dfeat[1:])
+            rq, rt, n_inl, ok, n_matches, parallax = _chunked(
+                pair_track, pair_chunk,
+                desc[:-1], valid[:-1], desc[1:], valid[1:],
+                px[:-1], px[1:], dfeat[:-1], dfeat[1:], wl_pair)
+        # cross-lane pairs never track; their stats leak nowhere
+        ok = ok & ~pair_xlane
+        n_inl = torch.where(pair_xlane, 0, n_inl)
+        n_matches = torch.where(pair_xlane, 0, n_matches)
+        parallax = torch.where(pair_xlane, 0.0, parallax)
+        rel_ok = ok
+        if monocular:
+            # constant-velocity fallback: a failed pair inherits its
+            # predecessor's relative pose (already in world scale) when
+            # that one tracked within the lane; the frame still counts as
+            # untracked unless the re-track verifies it
+            no = torch.zeros(1, dtype=torch.bool, device=dev)
+            use_prev = (~ok & torch.cat([no, ok[:-1]])
+                        & torch.cat([no, ~pair_xlane[:-1]]) & ~pair_xlane)
+            rq = torch.where(use_prev[:, None], torch.cat([rq[:1], rq[:-1]]), rq)
+            rt = torch.where(use_prev[:, None], torch.cat([rt[:1], rt[:-1]]), rt)
+            rel_ok = ok | use_prev
         clock.lap("pairs")
 
-        # ---- 4. absolute poses: T_cw[i+1] = rel[i] ∘ ... ∘ rel[0] ----
-        prefix = _compose_scan(torch.where(ok[:, None], rq, ident.q),
-                               torch.where(ok[:, None], rt, ident.t))
+        # ---- 4. absolute poses: T_cw[i+1] = rel[i] ∘ ... ∘ rel[0], reset
+        # at every lane start (whose cross-lane pair is the identity) ----
+        prefix = _segmented_compose_scan(
+            torch.where(rel_ok[:, None], rq, ident.q),
+            torch.where(rel_ok[:, None], rt, ident.t), pair_xlane)
         poses = Pose(torch.cat([ident.q[None], _normalized(prefix.q)]),
                      torch.cat([ident.t[None], prefix.t]))
-        tracked = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), ok])
+        lane_start = (torch.arange(T, device=dev) % T_lane) == 0
+        tracked = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), ok]) | lane_start
 
         # ---- 5. keyframe policy (host) ----
-        is_kf_np = _keyframe_policy(opts, n_inl, parallax, ok)
+        is_kf_np = _keyframe_policy(opts, n_inl, parallax, ok,
+                                    xlane_np if B > 1 else None)
 
-        # ---- 6. the last K keyframes, ascending, dead slots first ----
-        kf_frames = np.flatnonzero(is_kf_np)[-K:]
-        sel = torch.from_numpy(np.concatenate(
-            [np.full(K - len(kf_frames), -1), kf_frames])).to(dev)
+        # ---- 6. the last K keyframes of each lane, ascending, dead slots
+        # first ----
+        sel_np = np.full((B, K), -1, np.int64)
+        for b in range(B):
+            f = b * T_lane + np.flatnonzero(is_kf_np[b * T_lane:(b + 1) * T_lane])[-K:]
+            sel_np[b, K - len(f):] = f
+        sel = torch.from_numpy(sel_np.reshape(KT)).to(dev)
         kvalid = sel >= 0
         slot_frame = sel.clamp(min=0)
         kf_px = px[slot_frame]
@@ -329,44 +480,98 @@ def build_offline_pipeline(
         kf_fvalid = valid[slot_frame] & kvalid[:, None]
         kf_depth = dfeat[slot_frame]
 
-        # ---- 6b. keyframe chain: direct PnP between consecutive
-        # keyframes, the VO relative pose where it fails ----
-        gen_k = torch.Generator(device=dev).manual_seed(31)
-
-        def kf_pair_track(dq, vq, dt, vt, pxq, pxt, ddq, ddt):
-            m = matching.match_frames(dq, vq, dt, vt)
-            pc = backproject(cam, pxq, ddq)
-            pvalid = (m.valid & (ddq >= stages.MIN_DEPTH)
-                      & (ddq <= stages.MAX_DEPTH))
-            pose, _, ok_i = pair_pose(cam, gen_k, pc, take_rows(pxt, m.idx),
-                                      pvalid, torch.gather(ddt, 1, m.idx), 4)
-            return pose.q, pose.t, ok_i
-
+        # ---- 6b. keyframe chain: direct PnP between consecutive keyframes
+        # (RGB-D), the VO relative pose where it fails; mono keeps the VO
+        # chain. Each lane block's first slot anchors its segment at its
+        # own VO pose ----
+        kpair_within = torch.arange(KT - 1, device=dev) % K
+        kpair_xlane = kpair_within == K - 1
         vo_q, vo_t = poses.q[slot_frame], poses.t[slot_frame]
         vo_rel = se3_compose(Pose(vo_q[1:], vo_t[1:]),
                              se3_inverse(Pose(vo_q[:-1], vo_t[:-1])))
-        rk_q, rk_t, ok_k = _chunked(
-            kf_pair_track, pair_chunk,
-            kf_desc[:-1], kf_fvalid[:-1], kf_desc[1:], kf_fvalid[1:],
-            kf_px[:-1], kf_px[1:], kf_depth[:-1], kf_depth[1:])
-        use_k = (ok_k & kvalid[1:] & kvalid[:-1])[:, None]
-        kf_abs = _compose_scan(
-            torch.cat([vo_q[:1], torch.where(use_k, rk_q, vo_rel.q)]),
-            torch.cat([vo_t[:1], torch.where(use_k, rk_t, vo_rel.t)]))
+        if monocular:
+            rel_k = vo_rel
+        else:
+            u_kf = _lane_draws(31, K, pnp_hypotheses, N, dev)
+
+            def kf_pair_track(dq, vq, dt, vt, pxq, pxt, ddq, ddt, wl):
+                m = matching.match_frames(dq, vq, dt, vt)
+                pc = backproject(cam, pxq, ddq)
+                pvalid = (m.valid & (ddq >= stages.MIN_DEPTH)
+                          & (ddq <= stages.MAX_DEPTH))
+                pose, _, ok_i = pair_pose(
+                    cam, pc, take_rows(pxt, m.idx), pvalid,
+                    torch.gather(ddt, 1, m.idx), 4, u_kf[wl])
+                return pose.q, pose.t, ok_i
+
+            rk_q, rk_t, ok_k = _chunked(
+                kf_pair_track, pair_chunk,
+                kf_desc[:-1], kf_fvalid[:-1], kf_desc[1:], kf_fvalid[1:],
+                kf_px[:-1], kf_px[1:], kf_depth[:-1], kf_depth[1:],
+                kpair_within)
+            use_k = (ok_k & kvalid[1:] & kvalid[:-1] & ~kpair_xlane)[:, None]
+            rel_k = Pose(torch.where(use_k, rk_q, vo_rel.q),
+                         torch.where(use_k, rk_t, vo_rel.t))
+        kstart = (torch.arange(KT, device=dev) % K) == 0
+        chain_q = torch.where(kstart[:, None], vo_q, torch.cat([vo_q[:1], rel_k.q]))
+        chain_t = torch.where(kstart[:, None], vo_t, torch.cat([vo_t[:1], rel_k.t]))
+        kf_abs = _segmented_compose_scan(chain_q, chain_t, kstart)
         ms, links = build_keyframe_map(
             cam, opts, _normalized(kf_abs.q), kf_abs.t, sel.to(torch.int32),
-            kf_px, kf_desc, kf_fvalid, kf_depth, L, pair_chunk=pair_chunk)
+            kf_px, kf_desc, kf_fvalid, kf_depth, L, pair_chunk=pair_chunk,
+            pair_valid=None if B == 1 else ~kpair_xlane,
+            # mono: a stride-2 pass gives landmarks a third view, so global
+            # BA couples the chain's relative scales over two hops
+            link_strides=tuple(mono_link_strides) if monocular else (1,))
         clock.lap("map")
         aux = dict(poses_q=poses.q, poses_t=poses.t, tracked=tracked,
                    n_inl=n_inl, n_matches=n_matches, parallax=parallax,
                    is_kf=torch.from_numpy(is_kf_np).to(dev), px=px, desc=desc,
-                   valid=valid, dfeat=dfeat)
+                   valid=valid, dfeat=dfeat,
+                   lane_lm=links.created.reshape(B, K * N).sum(1).to(torch.int32))
         return ms, links, aux
 
+    def pair_track_mono(cam, u_pair, dq, vq, dt, vt, pxq, pxt, wl):
+        """Essential RANSAC + two-view triangulation for a chunk of pairs:
+        the unit-baseline relative pose, and the triangulated depths of
+        the scale chain (zq: query feature n in the query frame; zn: its
+        match in the train frame), 0 where they fail cheirality or the
+        relative far gate (10 x the pair's median depth)."""
+        m = matching.match_frames(dq, vq, dt, vt)
+        px_n = take_rows(pxt, m.idx)
+        logw = None if mono_sample_bias <= 0.0 else -m.dist / mono_sample_bias
+        sol = essential_ransac(cam, pxq, px_n, m.valid, None,
+                               n_hypotheses=mono_pair_hypotheses,
+                               lo_starts=mono_lo_starts,
+                               polish_iters=mono_polish_iters,
+                               score_top_k=mono_score_top_k,
+                               sample_logw=logw, noise=u_pair[wl])
+        P1 = torch.eye(3, 4, dtype=pxq.dtype, device=pxq.device)
+        P2 = torch.cat([sol.R, sol.t[:, :, None]], -1)
+        X = triangulate_dlt(P1, P2, _normalize_px(cam, pxq),
+                            _normalize_px(cam, px_n))        # [P,N,3] query cam
+        zq = X[..., 2]
+        zn = (X @ sol.R.transpose(-1, -2) + sol.t[:, None, :])[..., 2]
+        zgood = (m.valid & sol.inlier_mask & (zq > 1e-3) & (zn > 1e-3)
+                 & torch.isfinite(X).all(-1))
+        zmed = torch.nan_to_num(nanmedian(torch.where(zgood, zq, torch.nan)),
+                                nan=1.0)
+        zcap = (10.0 * torch.clamp(zmed, min=1e-3))[:, None]
+        zgood = zgood & (zq < zcap) & (zn < zcap)
+        ok = sol.ok & (sol.n_inliers >= opts.min_inliers)
+        return (matrix_to_quat(sol.R), sol.t, sol.n_inliers, ok,
+                m.valid.sum(-1).to(torch.int32),
+                stages.parallax_px(pxq, pxt, m),
+                torch.where(zgood, zq, 0.0), torch.where(zgood, zn, 0.0), m.idx)
+
+    gba_opts = GlobalBAOptions(max_iterations=max(refine_iterations, 1),
+                               cg_iterations=gba_cg_iterations)
+
     def run_refine(cam: CameraParams, ms: MapState) -> MapState:
-        ms, _ = global_ba(ms, cam, GlobalBAOptions(
-            max_iterations=max(refine_iterations, 1),
-            cg_iterations=gba_cg_iterations))
+        # folded lanes: one merged solve, gauge-grouped per lane block
+        gg = (None if B == 1 else torch.arange(B, device=ms.kf_q.device)
+              .repeat_interleave(K))
+        ms, _ = global_ba(ms, cam, gba_opts, gauge_group=gg)
         return ms
 
     def run_post(cam: CameraParams, ms: MapState, aux: dict):
@@ -375,6 +580,7 @@ def build_offline_pipeline(
         valid, dfeat = aux["valid"], aux["dfeat"]
         dev = is_kf.device
         T = is_kf.shape[0]
+        T_lane = T // B
         kvalid = ms.kf_id >= 0
         slot_frame = ms.kf_id.long().clamp(min=0)
 
@@ -384,7 +590,7 @@ def build_offline_pipeline(
         prev_kf = prev_kf.clamp(min=0)
         slot_of_frame = torch.zeros(T + 1, dtype=torch.long, device=dev)
         slot_of_frame[torch.where(kvalid, slot_frame, T)] = torch.arange(
-            K, device=dev)                               # row T: dead slots
+            KT, device=dev)                              # row T: dead slots
         kf_slot = slot_of_frame[:T][prev_kf]
 
         # fallback pose: re-anchor the VO chain to the refined keyframe,
@@ -395,32 +601,52 @@ def build_offline_pipeline(
 
         # ---- 8. re-track every frame against its preceding keyframe's
         # landmarks; the re-anchored pose competes as the motion prior ----
+        kd, kv, flm = ms.kf_desc[kf_slot], ms.kf_fvalid[kf_slot], ms.kf_feat_lm[kf_slot]
+        if monocular and mono_retrack_two_kf:
+            # mono: also the FOLLOWING keyframe's landmarks (the first
+            # keyframe at or after the frame, within its lane and still
+            # stored), so each frame sits between two anchors
+            nk = -torch.flip(torch.cummax(torch.flip(
+                torch.where(is_kf, -frame_ids, -(T + 1)), [0]), 0).values, [0])
+            has_next = (nk <= T - 1) & ((nk // T_lane) == (frame_ids // T_lane))
+            nk_c = torch.where(has_next, nk, prev_kf)
+            slot2 = slot_of_frame[nk_c.clamp(max=T - 1)]
+            use2 = has_next & (slot2 != kf_slot) & (ms.kf_id[slot2].long() == nk_c)
+            kd = torch.cat([kd, ms.kf_desc[slot2]], 1)
+            kv = torch.cat([kv, ms.kf_fvalid[slot2] & use2[:, None]], 1)
+            flm = torch.cat([flm, ms.kf_feat_lm[slot2]], 1)
         Lp = ms.lm_physical
-        gen_r = torch.Generator(device=dev).manual_seed(37)
+        u_rt = _lane_draws(37, T_lane, retrack_hypotheses, kd.shape[1], dev)
 
-        def frame_retrack(kd, kv, flm, di, vi, pxi, ddi, pq, pt):
+        def frame_retrack(kd, kv, flm, di, vi, pxi, pq, pt, wl, ddi=None):
             m = matching.match_frames(kd, kv, di, vi)
             lmf = flm.long().clamp(0, Lp - 1)
-            p3 = ms.lm_pos[:, lmf].permute(1, 2, 0)      # [P,N,3] world
+            p3 = ms.lm_pos[:, lmf].permute(1, 2, 0)      # [P,Nq,3] world
             pval = (m.valid & (flm >= 0) & ms.lm_alive[lmf]
                     & torch.isfinite(p3).all(-1))
             sol = pnp_ransac(
-                cam, p3, take_rows(pxi, m.idx), pval, gen_r,
+                cam, p3, take_rows(pxi, m.idx), pval, None,
                 opts.max_reproj_error, n_hypotheses=retrack_hypotheses,
                 refine_iters=retrack_refine_iters, init_pose=Pose(pq, pt),
-                depth_curr=torch.gather(ddi, 1, m.idx))
+                # mono: no sensor depth, DLT hypotheses
+                depth_curr=None if ddi is None else torch.gather(ddi, 1, m.idx),
+                noise=u_rt[wl])
             ok_i = (sol.ok & (sol.n_inliers >= opts.min_inliers)
                     & torch.isfinite(sol.pose.q).all(-1)
                     & torch.isfinite(sol.pose.t).all(-1))
             return sol.pose.q, sol.pose.t, sol.n_inliers, ok_i
 
         rt_q, rt_t, rt_inl, rt_ok = _chunked(
-            frame_retrack, pair_chunk,
-            ms.kf_desc[kf_slot], ms.kf_fvalid[kf_slot], ms.kf_feat_lm[kf_slot],
-            desc, valid, px, dfeat, poses.q, poses.t)
+            frame_retrack, pair_chunk, kd, kv, flm, desc, valid, px, poses.q,
+            poses.t, frame_ids % T_lane, *(() if monocular else (dfeat,)))
         poses = Pose(torch.where(rt_ok[:, None], rt_q, poses.q),
                      torch.where(rt_ok[:, None], rt_t, poses.t))
         zero_i = torch.zeros(1, dtype=torch.int32, device=dev)
+        if B == 1:
+            n_kf, n_lm = msl.n_keyframes(ms), msl.n_landmarks(ms)
+        else:  # per lane [B]
+            n_kf = kvalid.reshape(B, K).sum(1).to(torch.int32)
+            n_lm = aux["lane_lm"]
         out = OfflineOut(
             pose=se3_matrix(poses),
             tracked=aux["tracked"] | rt_ok,
@@ -429,8 +655,8 @@ def build_offline_pipeline(
                                   torch.cat([zero_i, aux["n_inl"]])),
             parallax=torch.cat([aux["parallax"].new_zeros(1), aux["parallax"]]),
             is_keyframe=is_kf,
-            n_keyframes=msl.n_keyframes(ms),
-            n_landmarks=msl.n_landmarks(ms),
+            n_keyframes=n_kf,
+            n_landmarks=n_lm,
         )
         return ms, out
 
@@ -448,21 +674,123 @@ def build_offline_pipeline(
     return run
 
 
+def _scale_chain(zq_u, zn_u, midx, rt, pair_xlane, pair_ix, T_lane: int):
+    """Monocular scale: pair i-1 and pair i share frame i's features, so the
+    median log-ratio of their triangulated depths (at least 8 shared)
+    gives s_i / s_{i-1}; a per-lane prefix sum of the log-ratios scales
+    every pair, and each lane's gauge puts the median depth of its first
+    pair at 2 m. Returns the scaled translations [T-1,3] and the
+    synthesized per-feature depths [T,N] (world scale; the frames without
+    an outgoing same-lane pair get zeros)."""
+    N = zq_u.shape[1]
+    B = (len(pair_ix) + 1) // T_lane
+    # cross-lane pairs relate unrelated frames: no depths from them
+    zq_u = torch.where(pair_xlane[:, None], 0.0, zq_u)
+    zn_u = torch.where(pair_xlane[:, None], 0.0, zn_u)
+    d_in = zn_u[:-1]                                     # [T-2,N], scale s_{i-1}
+    d_out = torch.gather(zq_u[1:], 1, midx[:-1])         # scale s_i
+    shared = (d_in > 0.0) & (d_out > 0.0)
+    logr = torch.where(shared, torch.log(torch.clamp(d_in, min=1e-9))
+                       - torch.log(torch.clamp(d_out, min=1e-9)), torch.nan)
+    med = torch.nan_to_num(nanmedian(logr, dim=1))
+    log_ratio = torch.where(shared.sum(1) >= 8, med, 0.0)   # [T-2]
+    cs = torch.cat([log_ratio.new_zeros(1), torch.cumsum(log_ratio, 0)])
+    log_s = cs - cs[(pair_ix // T_lane) * T_lane]        # per-lane prefix
+    zq0 = zq_u[torch.arange(B, device=zq_u.device) * T_lane]     # [B,N]
+    med0 = nanmedian(torch.where(zq0 > 0, zq0, torch.nan), dim=1)
+    c = 2.0 / torch.clamp(torch.nan_to_num(med0, nan=1.0), min=1e-6)
+    s = torch.exp(log_s) * c[pair_ix // T_lane]          # [T-1]
+    dfeat = torch.cat([zq_u * s[:, None], zq_u.new_zeros(1, N)])
+    return rt * s[:, None], dfeat
+
+
+def split_merged_lanes(ms: MapState, B: int, K: int, N: int, T_lane: int,
+                       lane_lm: torch.Tensor) -> MapState:
+    """Split a lane-merged MapState (B*K keyframe slots, lane-major
+    contiguous landmark allocation, as the ``lanes=B`` pipeline builds it)
+    into per-lane MapStates on a leading [B] axis: lane b's landmarks are
+    the merged rows [start_b, start_b + lane_lm[b]) (start_b the exclusive
+    prefix sum), gathered into a table of K*N + N rows with the links
+    re-offset and the keyframe ids made lane-relative, which is the table a
+    per-lane build produces."""
+    dev = ms.kf_q.device
+    lane_lm = lane_lm.long()
+    starts = torch.cumsum(lane_lm, 0) - lane_lm                  # [B]
+    Lp_lane = K * N + N
+    row = torch.arange(Lp_lane, device=dev)
+    src = (starts[:, None] + row[None, :]).clamp(max=ms.lm_physical - 1)
+    live = row[None, :] < lane_lm[:, None]                       # [B,Lp_lane]
+    lanes = lambda x: x.reshape(B, K, *x.shape[1:])
+    flm = lanes(ms.kf_feat_lm)
+    flm = torch.where(flm >= 0, flm - starts[:, None, None].to(flm.dtype), flm)
+    kf_id = lanes(ms.kf_id)
+    base = (torch.arange(B, device=dev) * T_lane)[:, None].to(kf_id.dtype)
+    kf_id = torch.where(kf_id >= 0, kf_id - base, -1)
+    return MapState(
+        kf_q=lanes(ms.kf_q), kf_t=lanes(ms.kf_t), kf_id=kf_id,
+        kf_px=lanes(ms.kf_px), kf_desc=lanes(ms.kf_desc),
+        kf_fvalid=lanes(ms.kf_fvalid), kf_feat_lm=flm,
+        kf_depth=lanes(ms.kf_depth),
+        lm_pos=ms.lm_pos[:, src].permute(1, 0, 2),               # [B,3,Lp_lane]
+        lm_alive=ms.lm_alive[src] & live,
+        lm_obs=torch.where(live, ms.lm_obs[src], 0),
+        next_kf=(kf_id >= 0).sum(1).to(torch.int32),
+        next_lm=lane_lm.to(torch.int32),
+        lm_dropped=torch.zeros(B, dtype=torch.int32, device=dev),
+    )
+
+
 def run_offline_pipeline(
     cam: CameraParams,
     images_u8,                # [T,H,W] uint8 (tensor or numpy)
-    depths_m,                 # [T,H,W] float32
+    depths_m,                 # [T,H,W] float32 (zeros in mono)
     opts: TrackingOptions,
     device="cuda",
     timings: dict | None = None,
     **kw,                     # build_offline_pipeline options
 ) -> tuple[MapState, OfflineOut]:
-    """The RGB-D offline pipeline on ``device`` with the JAX package's
-    defaults; returns (MapState, OfflineOut)."""
+    """The offline pipeline on ``device`` with the JAX package's defaults
+    (RGB-D, or ``monocular=True`` with the ``mono_*`` knobs); returns
+    (MapState, OfflineOut)."""
     dev = torch.device(device)
     images = torch.as_tensor(images_u8).to(dev)
     depths = torch.as_tensor(depths_m).to(dev, torch.float32)
     return build_offline_pipeline(opts, **kw)(cam, images, depths, timings)
+
+
+def run_offline_pipeline_batched(
+    cam: CameraParams,
+    images_u8,                # [B,T,H,W] uint8
+    depths_m,                 # [B,T,H,W] float32
+    opts: TrackingOptions,
+    device="cuda",
+    timings: dict | None = None,
+    **kw,                     # build_offline_pipeline options
+) -> tuple[MapState, OfflineOut]:
+    """B sequences of T frames as folded lanes (BASELINE config 5): one
+    ``lanes=B`` run over the B*T frames concatenated, with the JAX
+    package's defaults (``kf_capacity`` per lane from
+    ``default_lane_kf_capacity(T)``). Chunks count frames and pairs of the
+    folded axis, whatever B. Returns per-lane (MapState [B,...], OfflineOut
+    [B,T,...]) split out of the merged tables; lane b equals a single run
+    of its frames."""
+    dev = torch.device(device)
+    images = torch.as_tensor(images_u8).to(dev)
+    depths = torch.as_tensor(depths_m).to(dev, torch.float32)
+    B, T = images.shape[:2]
+    K = kw.setdefault("kf_capacity", default_lane_kf_capacity(T))
+    run = build_offline_pipeline(opts, lanes=B, **kw)
+    flat = lambda x: x.reshape(B * T, *x.shape[2:])
+    ms, out = run(cam, flat(images), flat(depths), timings)
+    lane = lambda x: x.reshape(B, T, *x.shape[1:])
+    n_lm = out.n_landmarks.reshape(B)
+    out = OfflineOut(
+        pose=lane(out.pose), tracked=lane(out.tracked),
+        n_matches=lane(out.n_matches), n_inliers=lane(out.n_inliers),
+        parallax=lane(out.parallax), is_keyframe=lane(out.is_keyframe),
+        n_keyframes=out.n_keyframes.reshape(B), n_landmarks=n_lm)
+    N = ms.kf_desc.shape[1]
+    return split_merged_lanes(ms, B, K, N, T, n_lm), out
 
 
 class _StageClock:

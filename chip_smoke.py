@@ -10,8 +10,15 @@ triangulated landmarks, so local BA iterates), and over the sequence tiled
 five times (1200 frames: the keyframe ring wraps and the landmark table is
 compacted at full capacity); the offline pipeline over 8 folded lanes of
 120 frames (BASELINE config 5); the monocular offline pipeline over the
-sequence tiled four times at stride 4 (config 2b); and the monocular scan
-over 60 frames at stride 4 (config 2).
+sequence tiled four times at stride 4 (config 2b); the monocular scan
+over 60 frames at stride 4 (config 2); the two global-BA solvers
+``pair_ba`` and ``global_ba`` on the offline K=128 map (config 4), timed;
+the scan in 64-frame chunks with the keyframe archive and the full-map
+global BA over every keyframe it made; the scan stopped at frame 120,
+snapshotted to an npz, reloaded and resumed; the scan with map culling on,
+with the default culling options (the map collapses, as the reference's
+does) and with options under which it stays healthy and removes keyframes;
+and the batched scan over config 5's 8 windows, against 8 single runs.
 
 Run from the repository root: ``python3 chip_smoke.py [--frames N]``.
 It exits non-zero (and prints no result) without a CUDA device or when any
@@ -365,11 +372,40 @@ def run_mono_scan(grays, gt_t) -> dict:
             **stats}
 
 
-def _scan(cam, g, d, stats=None, st0=None, frame0=0):
+# The JAX package's scan with ``enable_culling=True`` on the 240 frames, on
+# the CPU (tools/port_jax_references.py --configs cull): with the default
+# options every depth landmark (one observation) is culled at the first
+# keyframe event, tracking fails and the map is rebuilt from the identity,
+# over and over: 174/240 tracked at ATE 0.38595 m, 67 keyframe flags, a
+# final map of 2 keyframes and 2,000 landmarks, no keyframe removed by
+# culling. The port is held to that behaviour class.
+CULL_TRACKED_JAX = 174
+CULL_ATE_JAX = 0.385955
+CULL_KF_JAX = 67
+CULL_FINAL_KF_JAX = 2
+CULL_FINAL_LM_JAX = 2000
+CULL_KF_REMOVED_JAX = 0
+# The same with options that keep the map healthy (--configs cull_keep: one
+# observation keeps a landmark and makes it shared, at most 8 keyframes):
+# 240/240 tracked at ATE 4.4578 mm, 77 keyframe flags, a final map of 3
+# keyframes and 3,000 landmarks, 61 of the last 64 inserted keyframes
+# removed (one goes at nearly every keyframe event).
+CULL_KEEP = dict(min_landmark_observations=1, kf_min_shared_observations=1,
+                 max_keyframes=8)
+CULL_KEEP_TRACKED_JAX = 240
+CULL_KEEP_ATE_JAX = 0.004458
+CULL_KEEP_KF_JAX = 77
+CULL_KEEP_FINAL_KF_JAX = 3
+CULL_KEEP_FINAL_LM_JAX = 3000
+CULL_KEEP_KF_REMOVED_JAX = 61
+GBA_ITERS, GBA_CG = 2, 12     # bench.py config 4
+
+
+def _scan(cam, g, d, stats=None, st0=None, frame0=0, opts=None):
     from visionx_slam_torch.tracking.scan_pipeline import run_scan_pipeline
     from visionx_slam_torch.utils.config import TrackingOptions
 
-    return run_scan_pipeline(cam, g, d, TrackingOptions(), st0=st0,
+    return run_scan_pipeline(cam, g, d, opts or TrackingOptions(), st0=st0,
                              frame0=frame0, device="cuda", stats=stats)
 
 
@@ -388,12 +424,28 @@ def _scan_metrics(out, gt_t) -> dict:
             "landmarks": int(out.n_landmarks[-1])}
 
 
+def _cuda_syncs(fn) -> list:
+    """The warnings of CUDA's sync debug mode over one call of ``fn``: one
+    per synchronizing call."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return caught
+
+
 def run_scan(grays, depths, gt_t) -> dict:
     """The online scan: a warm-up run, a counted and timed run, an 8-frame
     streamed run for per-frame latency, and a run with CUDA's sync debug
     mode on that counts every synchronizing call of the loop."""
-    import warnings
-
     import numpy as np
     import torch
 
@@ -416,6 +468,9 @@ def run_scan(grays, depths, gt_t) -> dict:
     res = {"frames": T, "seconds": wall, "fps": T / wall,
            "k1_launches": detect.launches, "k1b_launches": detect.score_launches,
            **_scan_metrics(out, gt_t), **stats}
+    # kept for the resume phase's comparison; not printed
+    res["_positions"] = out.pose[:, :3, 3].cpu().numpy()
+    res["_tracked"] = out.tracked.cpu().numpy()
     res["host_syncs_per_frame"] = stats["host_syncs"] / T
     res["ba_iterations_per_kf_event"] = (stats["ba_iterations"]
                                          / max(stats["kf_events"], 1))
@@ -432,14 +487,7 @@ def run_scan(grays, depths, gt_t) -> dict:
     res["latency_ms_p99"] = float(np.percentile(lat, 99))
 
     # every synchronizing CUDA call of one run, not only the step's reads
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            _scan(cam, g, d)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+    caught = _cuda_syncs(lambda: _scan(cam, g, d))
     res["cuda_syncs_per_frame"] = len(caught) / T
     sites = collections.Counter(f"{w.filename.split('visionx_slam_torch/')[-1]}:"
                                 f"{w.lineno}" for w in caught)
@@ -491,6 +539,252 @@ def run_long_scan(grays, depths, gt_t, reps: int) -> dict:
     return {"frames": len(gt), "seconds": wall, "fps": len(gt) / wall,
             **_scan_metrics(out, gt), **stats}
 
+def _median_ms(fn, reps: int = 7) -> float:
+    """Median over ``reps`` warm calls of ``fn``, each timed by CUDA events."""
+    import statistics
+
+    import torch
+
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def run_gba(grays, depths) -> dict:
+    """Config 4: the offline ``pre`` stage's K=128 map and its links, then
+    ``pair_ba`` and ``global_ba`` (2 GN iterations of 12 CG steps), ms per
+    solve. On the bench input every feature has depth and creates its own
+    landmark, so no landmark has two views and the solves have nothing to
+    move. The second map ("dropout") has thousands: the loop tiled four
+    times at stride 4 (240 frames at four times the camera speed, config
+    2b's frames, so that two-view landmarks have a baseline that
+    conditions their depth) with 40% of the depth pixels dropped at
+    random; there the solves must lower the reprojection error."""
+    import numpy as np
+    import torch
+
+    from visionx_slam_torch.models.global_ba import (
+        GlobalBAOptions,
+        global_ba,
+        map_reproj_error,
+    )
+    from visionx_slam_torch.models.pair_ba import pair_ba
+    from visionx_slam_torch.ops import detect
+    from visionx_slam_torch.tracking import mapstate as msl
+    from visionx_slam_torch.tracking.offline_pipeline import build_offline_pipeline
+    from visionx_slam_torch.utils.config import TrackingOptions
+
+    cam = _camera()
+    run = build_offline_pipeline(TrackingOptions())
+    opts = GlobalBAOptions(max_iterations=GBA_ITERS, cg_iterations=GBA_CG)
+    keep = np.random.default_rng(2).random(depths.shape) > 0.4
+    fast = lambda x: np.tile(x, (4, 1, 1))[::4].copy()
+    res = {"gn_iterations": GBA_ITERS, "cg_iterations": GBA_CG}
+    detect.launches = 0
+    for name, g, d in (("bench", grays, depths),
+                       ("dropout", fast(grays), fast(depths) * keep)):
+        ms, links, _ = run.pre(cam, torch.as_tensor(g).cuda(),
+                               torch.as_tensor(d).cuda())
+        err0 = float(map_reproj_error(ms, cam)[0])
+        ms_p, st_p = pair_ba(ms, cam, links, opts)
+        ms_g, st_g = global_ba(ms, cam, opts)
+        ms_p2, _ = pair_ba(ms, cam, links, opts)
+        lm_gap = (ms_p.lm_pos - ms_g.lm_pos)[:, ms.lm_alive].abs().amax(0)
+        res[name] = {
+            "keyframes": int(msl.n_keyframes(ms)),
+            "landmarks": int(msl.n_landmarks(ms)),
+            "two_view_landmarks": int((links.adopter >= 0).sum()),
+            "total_obs": int(st_p.total_obs),
+            "total_obs_global": int(st_g.total_obs),
+            "mean_reproj_before_px": err0,
+            "mean_reproj_pair_px": float(map_reproj_error(ms_p, cam)[0]),
+            "mean_reproj_global_px": float(map_reproj_error(ms_g, cam)[0]),
+            "pose_gap_t": float((ms_p.kf_t - ms_g.kf_t).abs().max()),
+            "pose_gap_q": float((ms_p.kf_q - ms_g.kf_q).abs().max()),
+            "landmark_gap_p99": float(torch.quantile(lm_gap, 0.99)),
+            "landmark_gap_max": float(lm_gap.max()),
+            "landmarks_over_gap": int((lm_gap > 5e-3).sum()),
+            "moved_t": float((ms_p.kf_t - ms.kf_t).abs().max()),
+            "pair_ba_repeats_bit_for_bit": all(
+                torch.equal(getattr(ms_p, f), getattr(ms_p2, f))
+                for f in ("kf_q", "kf_t", "lm_pos")),
+            "pair_ba_ms_per_solve": _median_ms(lambda: pair_ba(ms, cam, links, opts)),
+            "global_ba_ms_per_solve": _median_ms(lambda: global_ba(ms, cam, opts)),
+        }
+    res["k1_launches"] = detect.launches
+    return res
+
+
+def run_archive(grays, depths, gt_t) -> dict:
+    """The scan in 64-frame chunks with the keyframe archive harvested at
+    each boundary, then the full-map global BA over the union of every
+    keyframe the scan made."""
+    import torch
+
+    from visionx_slam_torch.ops import detect
+    from visionx_slam_torch.system.system import run_scan_archived
+    from visionx_slam_torch.tracking import mapstate as msl
+    from visionx_slam_torch.utils.config import TrackingOptions
+
+    stats: dict = {}
+    detect.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, out, archive, gba = run_scan_archived(
+        _camera(), grays, depths, TrackingOptions(), device="cuda", stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gba = {k: v for k, v in gba.items() if k not in ("keyframe_poses", "keyframe_ids")}
+    return {"frames": len(grays), "seconds": wall, "fps": len(grays) / wall,
+            "k1_launches": detect.launches, **_scan_metrics(out, gt_t),
+            "archived": len(archive), "union_keyframes": int(msl.n_keyframes(st.ms)),
+            "union_slots": st.ms.kf_capacity,
+            "union_landmarks": int(msl.n_landmarks(st.ms)), "gba": gba, **stats}
+
+
+def run_resume(grays, depths, gt_t, full_positions, full_tracked) -> dict:
+    """Scan the first half, write a snapshot npz, load it, resume, scan the
+    second half; against the uninterrupted scan's positions."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from visionx_slam_torch.ops import detect
+    from visionx_slam_torch.system.system import load_snapshot_full, save_snapshot
+    from visionx_slam_torch.tracking.scan_pipeline import resume_state
+
+    cam = _camera()
+    g = torch.as_tensor(grays).cuda()
+    d = torch.as_tensor(depths).cuda()
+    cut = len(grays) // 2
+    detect.launches = 0
+    st, _ = _scan(cam, g[:cut], d[:cut])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "map_snapshot.npz")
+        t0 = time.perf_counter()
+        save_snapshot(path, st.ms, cut)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        ms, meta = load_snapshot_full(path, device="cuda")
+        load_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(ms, st.ms))
+    del st
+    stats: dict = {}
+    _, out = _scan(cam, g[cut:], d[cut:], stats, st0=resume_state(ms),
+                   frame0=meta["next_frame_id"])
+    tracked = out.tracked.cpu().numpy()
+    both = tracked & full_tracked[cut:]
+    gap = np.abs(out.pose[:, :3, 3].cpu().numpy() - full_positions[cut:])[both]
+    return {"frames_resumed": len(tracked), "next_frame_id": meta["next_frame_id"],
+            "snapshot_bytes": size, "save_seconds": save_s, "load_seconds": load_s,
+            "snapshot_round_trip_equal": same, "tracked": int(tracked.sum()),
+            "first_tracked": bool(tracked[0]),
+            "max_position_gap_m": float(gap.max()) if gap.size else None,
+            "k1_launches": detect.launches,
+            **_scan_metrics(out, gt_t[cut:]), **stats}
+
+
+def run_culling(grays, depths, gt_t, **cull_opts) -> dict:
+    """The scan with ``enable_culling=True`` and the given culling options,
+    then once more under CUDA's sync debug mode."""
+    import torch
+
+    from visionx_slam_torch.ops import detect
+    from visionx_slam_torch.tracking import mapstate as msl
+    from visionx_slam_torch.utils.config import TrackingOptions
+
+    stats: dict = {}
+    cam, opts = _camera(), TrackingOptions(enable_culling=True, **cull_opts)
+    g = torch.as_tensor(grays).cuda()
+    d = torch.as_tensor(depths).cuda()
+    detect.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, out = _scan(cam, g, d, stats, opts=opts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = detect.launches
+    T = len(grays)
+    n_syncs = len(_cuda_syncs(lambda: _scan(cam, g, d, opts=opts)))
+    return {"frames": T, "seconds": wall, "fps": T / wall,
+            "cuda_syncs_per_frame": n_syncs / T,
+            "k1_launches": launches, **_scan_metrics(out, gt_t),
+            "final_keyframes": int(msl.n_keyframes(st.ms)),
+            "host_syncs_per_frame": stats["host_syncs"] / T, **stats}
+
+
+def run_batched_scan(grays, depths, gt_t) -> dict:
+    """The batched scan over config 5's 8 staggered 120-frame windows (a
+    warm-up run, then a counted, timed run), and the 8 windows as single
+    runs one after the other in the same call."""
+    import numpy as np
+    import torch
+
+    from visionx_slam_torch.eval.trajectory import ate_of_run
+    from visionx_slam_torch.ops import detect
+    from visionx_slam_torch.tracking.scan_pipeline import run_scan_pipeline_batched
+    from visionx_slam_torch.utils.config import TrackingOptions
+
+    cam, opts = _camera(), TrackingOptions()
+    T = len(grays)
+    starts = [(k * T) // LANES_B for k in range(LANES_B)]
+    Tw = min(LANES_T, T)
+    g2, d2, gt2 = (np.concatenate([x, x]) for x in (grays, depths, gt_t))
+    g = torch.as_tensor(np.stack([g2[s:s + Tw] for s in starts])).cuda()
+    d = torch.as_tensor(np.stack([d2[s:s + Tw] for s in starts])).cuda()
+    run_scan_pipeline_batched(cam, g[:, :16], d[:, :16], opts, device="cuda")
+
+    stats: dict = {}
+    detect.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, out = run_scan_pipeline_batched(cam, g, d, opts, device="cuda", stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = detect.launches
+    pose, tracked = out.pose.cpu().numpy(), out.tracked.cpu().numpy()
+    _require(pose.shape == (Tw, LANES_B, 4, 4) and bool(np.isfinite(pose).all()),
+             f"batched scan poses of shape {pose.shape}, all finite")
+    ates = [ate_of_run(pose[:, b], tracked[:, b], gt2[s:s + Tw])[0]
+            for b, s in enumerate(starts)]
+
+    singles = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in range(LANES_B):
+        singles.append(_scan(cam, g[b], d[b])[1])
+    torch.cuda.synchronize()
+    wall_single = time.perf_counter() - t0
+    one_ate, one_tracked = ate_of_run(singles[0].pose.cpu().numpy(),
+                                      singles[0].tracked.cpu().numpy(), gt2[:Tw])
+    lanes_equal = [bool(torch.equal(out.pose[:, b], singles[b].pose))
+                   for b in range(LANES_B)]
+    return {"lanes": LANES_B, "frames_per_lane": Tw, "seconds": wall,
+            "aggregate_fps": LANES_B * Tw / wall,
+            "single_runs_seconds": wall_single,
+            "single_runs_fps": LANES_B * Tw / wall_single,
+            "extract_seconds": stats["extract_seconds"],
+            "tracked_frac": float(tracked.mean()), "lane_ate_m": ates,
+            "lane_tracked": tracked.sum(0).tolist(),
+            "keyframe_events": out.is_keyframe.sum(0).tolist(),
+            "k1_launches": launches, "single_lane0_ate_m": one_ate,
+            "single_lane0_tracked": one_tracked,
+            "lanes_equal_single_runs_bit_for_bit": lanes_equal,
+            "host_syncs_per_frame": stats["host_syncs"] / (LANES_B * Tw)}
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -538,8 +832,9 @@ def main() -> int:
     if T == 240:  # the JAX reference makes 80 keyframes on this input
         _require(68 <= res["keyframes"] <= 92, f"keyframes {res['keyframes']}")
 
-    # ---- 5. the online scan (this slice's main path) ----
+    # ---- 5. the online scan ----
     scan = run_scan(grays, depths, gt_t)
+    full_positions, full_tracked = scan.pop("_positions"), scan.pop("_tracked")
     print("scan " + json.dumps(scan) + f" ({card})", flush=True)
     _require(scan["k1_launches"] > 0, "the scan launched K1")
     _require(scan["tracked"] >= int(0.95 * T), f"scan tracked {scan['tracked']}/{T}")
@@ -627,15 +922,171 @@ def main() -> int:
                  f"mono scan ATE {mscan['ate_m_scale_aligned']} m <= 2 x JAX's "
                  f"median draw {MONO_SCAN_ATE_JAX} m")
 
+    # ---- 11. the two global-BA solvers on the offline map (config 4) ----
+    gba = run_gba(grays, depths)
+    print("gba " + json.dumps(gba) + f" ({card})", flush=True)
+    _require(gba["k1_launches"] == 2 * -(-T // 8), "the two map builds launched K1")
+    for name in ("bench", "dropout"):
+        m = gba[name]
+        # gated at the start of the last iteration, on states that differ
+        # in their last bits
+        _require(m["total_obs"] > 0 and abs(m["total_obs"] - m["total_obs_global"])
+                 <= 1e-3 * m["total_obs"],
+                 f"gba {name}: both solvers see the same observations: "
+                 f"{m['total_obs']}, {m['total_obs_global']}")
+        for solver in ("pair", "global"):
+            _require(m[f"mean_reproj_{solver}_px"]
+                     <= m["mean_reproj_before_px"] + 1e-3,
+                     f"gba {name}: {solver} does not raise the reprojection error")
+        # landmarks by their 99th percentile, with the worst one bounded: a
+        # few two-view landmarks with a weak depth direction amplify the
+        # solvers' last bits to centimetres
+        _require(m["pose_gap_t"] <= 2e-3 and m["pose_gap_q"] <= 2e-3
+                 and m["landmark_gap_p99"] <= 5e-3 and m["landmark_gap_max"] <= 0.2,
+                 f"gba {name}: pair_ba and global_ba agree (poses 2e-3, landmarks' "
+                 f"99th percentile 5e-3, worst landmark 0.2 m): {m['pose_gap_t']}, "
+                 f"{m['pose_gap_q']}, {m['landmark_gap_p99']}, {m['landmark_gap_max']}")
+        _require(m["pair_ba_repeats_bit_for_bit"],
+                 f"gba {name}: pair_ba gives equal bits twice")
+    if T == 240:
+        _require(gba["bench"]["keyframes"] >= 68, "the K=128 map's keyframes")
+    d = gba["dropout"]
+    _require(d["two_view_landmarks"] > 1000, "the dropout map has two-view landmarks")
+    _require(d["mean_reproj_pair_px"] < d["mean_reproj_before_px"]
+             and d["mean_reproj_global_px"] < d["mean_reproj_before_px"],
+             "both solvers lower the dropout map's reprojection error")
+    _require(abs(d["mean_reproj_pair_px"] - d["mean_reproj_global_px"])
+             <= 0.03 * d["mean_reproj_global_px"],
+             f"the dropout map's error after pair_ba {d['mean_reproj_pair_px']} px "
+             f"within 3% of global_ba's {d['mean_reproj_global_px']} px")
+
+    # ---- 12. the archived scan and the full-map global BA ----
+    arch = run_archive(grays, depths, gt_t)
+    print("archive " + json.dumps(arch) + f" ({card})", flush=True)
+    _require(arch["k1_launches"] == sum(-(-min(64, T - s) // 8)
+                                        for s in range(0, T, 64)),
+             f"K1 launches of the archived scan {arch['k1_launches']}")
+    # the init pair inserts two keyframes and flags one frame
+    _require(arch["archived"] == arch["keyframe_events"] + 1,
+             f"archived {arch['archived']} == keyframes made "
+             f"{arch['keyframe_events'] + 1}")
+    _require(arch["union_keyframes"] == arch["archived"],
+             "the union map holds every archived keyframe")
+    _require(arch["gba"]["mean_reproj_after_px"]
+             <= arch["gba"]["mean_reproj_before_px"] + 1e-3,
+             "the union solve does not raise the reprojection error")
+    _require(arch["gba"]["total_obs"] > 0, "the union solve has observations")
+    _require(abs(arch["ate_m"] - scan["ate_m"]) <= 5e-4
+             and abs(arch["tracked"] - scan["tracked"]) <= 1,
+             f"chunking at 64 leaves the scan as it was: ATE {arch['ate_m']} vs "
+             f"{scan['ate_m']}, tracked {arch['tracked']} vs {scan['tracked']}")
+    if T == 240:
+        _require(arch["archived"] > 64 and arch["union_slots"] == 128,
+                 f"the archive outgrew the ring: {arch['archived']} keyframes in "
+                 f"{arch['union_slots']} slots")
+        _require(arch["gba"].get("archived_keyframes") == arch["archived"],
+                 "the solve covered the union map")
+
+    # ---- 13. snapshot and resume ----
+    resume = run_resume(grays, depths, gt_t, full_positions, full_tracked)
+    print("resume " + json.dumps(resume) + f" ({card})", flush=True)
+    n_res = resume["frames_resumed"]
+    _require(resume["k1_launches"] > 0, "the resumed scan launched K1")
+    _require(resume["snapshot_round_trip_equal"] and resume["next_frame_id"] == T // 2,
+             "the snapshot loads as it was saved")
+    _require(resume["first_tracked"], "the first resumed frame tracks")
+    _require(resume["tracked"] >= n_res - 2, f"resumed tracked {resume['tracked']}/{n_res}")
+    _require(resume["max_position_gap_m"] is not None
+             and resume["max_position_gap_m"] <= 0.010,
+             f"resumed positions within 10 mm of the uninterrupted scan: "
+             f"{resume['max_position_gap_m']}")
+
+    # ---- 14. the scan with map culling ----
+    cull = run_culling(grays, depths, gt_t)
+    print("culling " + json.dumps(cull) + f" ({card})", flush=True)
+    _require(cull["k1_launches"] == -(-T // 8), "the culling scan launched K1")
+    _require(cull["lm_culled"] > 0, "culling removed landmarks")
+    if T == 240:   # JAX collapses at this shape: the behaviour class
+        lo, hi = 0.85 * CULL_TRACKED_JAX, 1.15 * CULL_TRACKED_JAX
+        _require(lo <= cull["tracked"] <= hi,
+                 f"culling tracked {cull['tracked']} in [{lo}, {hi}]")
+        _require(cull["ate_m"] is not None
+                 and CULL_ATE_JAX / 3 <= cull["ate_m"] <= 3 * CULL_ATE_JAX,
+                 f"culling ATE {cull['ate_m']} m of the order of JAX's {CULL_ATE_JAX} m")
+        lo, hi = 0.85 * CULL_KF_JAX, 1.15 * CULL_KF_JAX
+        _require(lo <= cull["keyframe_events"] <= hi,
+                 f"culling keyframe flags {cull['keyframe_events']} in [{lo}, {hi}]")
+    print(f"culling: {cull['fps']:.1f} fps, {cull['host_syncs_per_frame']:.3f} host "
+          f"reads/frame (plain scan {scan['host_syncs_per_frame']:.3f}), "
+          f"{cull['cuda_syncs_per_frame']:.3f} CUDA syncs/frame (plain scan "
+          f"{scan['cuda_syncs_per_frame']:.3f}), "
+          f"{cull['lm_culled']} landmarks and {cull['kf_culled']} keyframes culled, "
+          f"final map {cull['final_keyframes']} keyframes / {cull['landmarks']} "
+          f"landmarks (JAX {CULL_FINAL_KF_JAX} / {CULL_FINAL_LM_JAX}, "
+          f"{CULL_KF_REMOVED_JAX} keyframes removed) ({card})", flush=True)
+
+    # with options that keep the landmarks: a healthy run that removes keyframes
+    keep = run_culling(grays, depths, gt_t, **CULL_KEEP)
+    print("culling, landmarks kept " + json.dumps(keep) + f" ({card})", flush=True)
+    _require(keep["k1_launches"] == -(-T // 8), "the second culling scan launched K1")
+    _require(keep["kf_culled"] > 0 and keep["lm_culled"] > 0,
+             f"culling removed keyframes ({keep['kf_culled']}) and landmarks "
+             f"({keep['lm_culled']})")
+    _require(keep["tracked"] >= int(0.95 * T), f"culling (kept) tracked {keep['tracked']}/{T}")
+    _require(keep["final_keyframes"] <= CULL_KEEP["max_keyframes"],
+             f"the culled map holds {keep['final_keyframes']} keyframes")
+    if T == 240:
+        _require(keep["tracked"] >= 0.95 * CULL_KEEP_TRACKED_JAX
+                 and keep["ate_m"] is not None
+                 and keep["ate_m"] <= 2 * CULL_KEEP_ATE_JAX,
+                 f"culling (kept): tracked {keep['tracked']}, ATE {keep['ate_m']} m "
+                 f"<= {2 * CULL_KEEP_ATE_JAX} m")
+        lo, hi = 0.85 * CULL_KEEP_KF_JAX, 1.15 * CULL_KEEP_KF_JAX
+        _require(lo <= keep["keyframe_events"] <= hi,
+                 f"culling (kept) keyframe flags {keep['keyframe_events']} in [{lo}, {hi}]")
+        _require(keep["kf_culled"] >= CULL_KEEP_KF_REMOVED_JAX,
+                 f"culling (kept) removed {keep['kf_culled']} keyframes, JAX at least "
+                 f"{CULL_KEEP_KF_REMOVED_JAX}")
+    print(f"culling, landmarks kept: {keep['fps']:.1f} fps, "
+          f"{keep['host_syncs_per_frame']:.3f} host reads/frame, "
+          f"{keep['cuda_syncs_per_frame']:.3f} CUDA syncs/frame, "
+          f"{keep['lm_culled']} landmarks and {keep['kf_culled']} keyframes culled, "
+          f"final map {keep['final_keyframes']} keyframes / {keep['landmarks']} "
+          f"landmarks (JAX {CULL_KEEP_FINAL_KF_JAX} / {CULL_KEEP_FINAL_LM_JAX}) "
+          f"({card})", flush=True)
+
+    # ---- 15. the batched scan (config 5's windows) ----
+    bscan = run_batched_scan(grays, depths, gt_t)
+    print("batched scan " + json.dumps(bscan) + f" ({card})", flush=True)
+    n_frames = LANES_B * bscan["frames_per_lane"]
+    _require(bscan["tracked_frac"] >= 0.95,
+             f"batched scan tracked {bscan['tracked_frac']}")
+    _require(bscan["k1_launches"] == -(-n_frames // 8),
+             f"K1 launches of the batched scan {bscan['k1_launches']}")
+    _require(bscan["single_lane0_ate_m"] is not None
+             and abs(bscan["lane_ate_m"][0] - bscan["single_lane0_ate_m"]) <= 5e-4,
+             f"lane 0 ATE {bscan['lane_ate_m'][0]} within 0.5 mm of its single "
+             f"run {bscan['single_lane0_ate_m']}")
+    _require(abs(bscan["lane_tracked"][0] - bscan["single_lane0_tracked"]) <= 1,
+             "lane 0 tracked within one frame of its single run")
+    print(f"batched scan: {bscan['aggregate_fps']:.1f} aggregate fps, the 8 single runs "
+          f"{bscan['single_runs_fps']:.1f} fps"
+          f", the offline folded lanes {lanes['aggregate_fps']:.1f} aggregate fps "
+          f"({card})", flush=True)
+
     k1["launches"] = scan["k1_launches"]
     k1b["launches"] = scan["k1b_launches"]
     k1["launches_by_path"] = {
         "offline": res["k1_launches"], "scan": scan["k1_launches"],
         "hole_scan": hole["k1_launches"], "lanes": lanes["k1_launches"],
-        "mono_offline": mono["k1_launches"], "mono_scan": mscan["k1_launches"]}
+        "mono_offline": mono["k1_launches"], "mono_scan": mscan["k1_launches"],
+        "gba": gba["k1_launches"], "archive": arch["k1_launches"],
+        "resume": resume["k1_launches"], "culling": cull["k1_launches"],
+        "culling_keep": keep["k1_launches"],
+        "batched_scan": bscan["k1_launches"]}
     k1b["launches_by_path"] = {"scan": scan["k1b_launches"]}
 
-    # ---- 11. result ----
+    # ---- 16. result ----
     print(json.dumps({"kernels": [k1, k1b]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """The port on a CUDA device against the same port on the CPU (skipped
 without a card; run on the GPU host with ``--noconftest``, see README).
 No jax here: the GPU host has none. The ORB atlas (bit for bit), the
-offline pipeline (one lane, two folded lanes, monocular), global BA, and
-the online scan: with depth holes (triangulation, local BA and compaction
+offline pipeline (one lane, two folded lanes, monocular), global BA, the
+pairwise solver ``pair_ba`` (also: equal bits between two runs), the scan
+with map culling, and the online scan: with depth holes (triangulation, local BA and compaction
 run), through a blackout (reset and re-initialization), and with the
 monocular option set (essential init, inherited landmarks).
 
@@ -96,12 +97,12 @@ def _noisy_map():
                                    torch.stack(ts), ids, px, desc, valid, dep,
                                    len(frames) * N)
     assert int((links.adopter >= 0).sum()) > 200
-    return cam, ms
+    return cam, ms, links
 
 
 def test_global_ba_on_cuda_matches_cpu(cuda):
     """Two GN passes from the same CPU-built map on both devices."""
-    cam, ms = _noisy_map()
+    cam, ms, _ = _noisy_map()
     opts = GlobalBAOptions(max_iterations=2, cg_iterations=8)
     r_c, s_c = global_ba(ms, cam, opts)
     r_g, s_g = global_ba(type(ms)(*(x.to(cuda) for x in ms)), cam, opts)
@@ -112,6 +113,57 @@ def test_global_ba_on_cuda_matches_cpu(cuda):
     np.testing.assert_allclose(r_g.kf_t.cpu().numpy(), r_c.kf_t.numpy(), atol=1e-4)
     np.testing.assert_allclose(float(map_reproj_error(r_g, cam)[0]),
                                float(map_reproj_error(r_c, cam)[0]), rtol=1e-3)
+
+
+def test_pair_ba_on_cuda_matches_cpu_and_repeats(cuda):
+    """Two GN passes of the pairwise solver from the same CPU-built map on
+    both devices; on the card it has no atomics, so two runs give equal
+    bits."""
+    from visionx_slam_torch.models.pair_ba import pair_ba
+
+    cam, ms, links = _noisy_map()
+    opts = GlobalBAOptions(max_iterations=2, cg_iterations=8)
+    r_c, s_c = pair_ba(ms, cam, links, opts)
+    on = lambda nt: type(nt)(*(x.to(cuda) for x in nt))
+    r_g, s_g = pair_ba(on(ms), cam, on(links), opts)
+    assert (r_c.kf_t - ms.kf_t).abs().max() > 1e-3       # the solve moved
+    assert int(s_g.total_obs) == int(s_c.total_obs) > 0
+    np.testing.assert_allclose(float(s_g.final_cost), float(s_c.final_cost),
+                               rtol=1e-4)
+    np.testing.assert_allclose(r_g.kf_q.cpu().numpy(), r_c.kf_q.numpy(), atol=1e-4)
+    np.testing.assert_allclose(r_g.kf_t.cpu().numpy(), r_c.kf_t.numpy(), atol=1e-4)
+    np.testing.assert_allclose(float(map_reproj_error(r_g, cam)[0]),
+                               float(map_reproj_error(r_c, cam)[0]), rtol=1e-3)
+    r_g2, _ = pair_ba(on(ms), cam, on(links), opts)
+    for f in ("kf_q", "kf_t", "lm_pos"):
+        assert torch.equal(getattr(r_g, f), getattr(r_g2, f)), f
+
+
+def test_culling_scan_on_cuda_matches_cpu_band(cuda):
+    """The scan with map culling on 24 frames, with options that keep the
+    landmarks and make keyframes redundant (keyframes are removed at every
+    event): the card against the CPU port. The devices draw different
+    RANSAC samples, so a band: every frame tracks on both, ATE within 2 mm,
+    the same number of keyframes removed within 1, the same landmark count
+    within 5%."""
+    grays, depths, gt = sequence(24, 7)
+    cam = make_camera(synthetic.FX, synthetic.FY, synthetic.CX, synthetic.CY)
+    opts = TrackingOptions(enable_culling=True, min_landmark_observations=1,
+                           kf_min_shared_observations=1, max_keyframes=4)
+    res = {}
+    for dev in ("cpu", cuda):
+        stats = {}
+        before = detect.launches
+        _, out = run_scan_pipeline(cam, grays, depths, opts, kf_capacity=8,
+                                   lm_capacity=16384, device=dev, stats=stats)
+        assert (detect.launches > before) == (dev != "cpu")
+        ate, n = ate_of_run(out.pose.cpu().numpy(), out.tracked.cpu().numpy(), gt)
+        res[str(dev)] = (ate, n, stats, int(out.n_landmarks[-1]))
+    (a_c, n_c, s_c, l_c), (a_g, n_g, s_g, l_g) = res["cpu"], res["cuda"]
+    assert n_c == n_g == 24
+    assert a_g < 0.01 and abs(a_g - a_c) <= 2e-3, (a_c, a_g)
+    assert s_g["kf_culled"] >= 2 and abs(s_g["kf_culled"] - s_c["kf_culled"]) <= 1
+    assert s_g["lm_culled"] > 0 and abs(l_g - l_c) <= 0.05 * l_c, (l_c, l_g)
 
 
 def test_atlas_on_cuda_equals_cpu_bit_for_bit(cuda):

@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither jax, cv2 nor
 ``visionx_slam_tpu`` (the GPU host has no jax and no cv2) — every module,
-and the offline pipeline (one lane, folded lanes, monocular) and the online
-scan run end to end — and its
+and the offline pipeline (one lane, folded lanes, monocular), the online
+scan (plain, with culling, batched, archived with the full-map global BA,
+resumed from a snapshot) and ``pair_ba`` run end to end — and its
 in-memory sequence is bit-for-bit the one the bench loads from PNGs."""
 
 import subprocess
@@ -49,6 +50,34 @@ st, out = run_scan_pipeline(cam, g, d, TrackingOptions(), device="cpu",
                             kf_capacity=8, lm_capacity=8192)
 ate, n = ate_of_run(out.pose.numpy(), out.tracked.numpy(), gt)
 assert n == 4 and ate < 0.02, (n, ate)
+import dataclasses, os, tempfile
+from visionx_slam_torch.models.pair_ba import pair_ba
+from visionx_slam_torch.system import system
+from visionx_slam_torch.tracking.scan_pipeline import (
+    resume_state, run_scan_pipeline_batched)
+kw = dict(kf_capacity=8, lm_capacity=8192)
+cull = dataclasses.replace(TrackingOptions(), enable_culling=True)
+_, outc = run_scan_pipeline(cam, g, d, cull, device="cpu", **kw)
+assert outc.pose.shape == (4, 4, 4)
+_, outb = run_scan_pipeline_batched(cam, np.stack([g, g[::-1]]),
+                                    np.stack([d, d[::-1]]), TrackingOptions(),
+                                    device="cpu", **kw)
+assert outb.pose.shape == (4, 2, 4, 4) and bool(outb.tracked.all())
+st, outa, archive, gba = system.run_scan_archived(
+    cam, g, d, TrackingOptions(), gba_iterations=1, device="cpu", **kw)
+assert len(archive) == 2 and gba["total_obs"] > 0
+ums, links = system.archive_union_map(archive, cam, TrackingOptions(), device="cpu")
+_, pstats = pair_ba(ums, cam, links)
+assert int(pstats.total_obs) > 0
+with tempfile.TemporaryDirectory() as tmp:
+    snap = os.path.join(tmp, "map_snapshot.npz")
+    system.save_snapshot(snap, st.ms, 4)
+    ms2, meta = system.load_snapshot_full(snap, device="cpu")
+    assert meta == {"next_frame_id": 4} and resume_state(ms2).tstate == scan_pipeline.GOOD
+    _, outr, _, _ = system.run_scan_archived(cam, g[2:], d[2:], TrackingOptions(),
+                                             run_gba=False, resume_from=snap,
+                                             device="cpu", **kw)
+    assert bool(outr.tracked.all())
 loaded = [m for m in ("jax", "cv2", "visionx_slam_tpu") if sys.modules.get(m)]
 assert not loaded, loaded
 print("GUARD-OK")

@@ -10,9 +10,10 @@ landmark counts are within 10%.
 Also: a run streamed in 8-frame chunks equals one run bit for bit (each
 frame seeds its own generators), the garbage-frame recovery case of
 tests/test_scan_pipeline.py holds for the port, a steady tracked frame
-costs one device read, and the paths left unported raise."""
-
-import dataclasses
+costs one device read, the stage limits that profile the TPU raise, and the
+batched scan over two 16-frame sequences (the run above, and its frames in
+reverse order) gives outputs laid out [T, B, ...] whose lane b equals the
+single run of sequence b bit for bit."""
 
 import numpy as np
 import pytest
@@ -118,23 +119,75 @@ def test_scan_recovers_from_garbage_frames():
     assert states[-1] == TSP.GOOD, states
 
 
-@pytest.mark.parametrize("what", ["culling", "culling_run", "stage_limit",
-                                  "resume", "batched_run"])
+@pytest.mark.parametrize("what", ["stage_limit"])
 def test_unported_paths_raise(what):
     _, tc = cameras()
-    opts = TrackingOptions()
     with pytest.raises(NotImplementedError):
-        if what == "culling":
-            TSP.build_scan_step(tc, dataclasses.replace(opts, enable_culling=True),
-                                (640, 480))
-        elif what == "culling_run":
-            TSP.run_scan_pipeline(tc, np.zeros((1, 8, 8), np.uint8),
-                                  np.zeros((1, 8, 8), np.float32),
-                                  dataclasses.replace(opts, enable_culling=True),
-                                  device="cpu")
-        elif what == "stage_limit":
-            TSP.build_scan_step(tc, opts, (640, 480), stage_limit=1)
-        elif what == "resume":
-            TSP.resume_state(TSP.initial_state(64, 4, 256).ms)
-        else:
-            TSP.run_scan_pipeline_batched(tc, None, None, opts)
+        TSP.build_scan_step(tc, TrackingOptions(), (640, 480), stage_limit=1)
+
+
+def test_batched_scan_lanes_equal_single_runs(runs):
+    _, _, st0, o0, _, _ = runs
+    grays, depths, _ = sequence(16, 7)
+    _, tc = cameras()
+    opts = TrackingOptions(ba_window_size=4)
+    g2 = np.stack([grays, grays[::-1]])
+    d2 = np.stack([depths, depths[::-1]])
+    stats = {}
+    stb, ob = TSP.run_scan_pipeline_batched(tc, g2, d2, opts, device="cpu",
+                                            stats=stats, **KW)
+    st1, o1 = TSP.run_scan_pipeline(tc, g2[1], d2[1], opts, device="cpu", **KW)
+    assert ob.pose.shape == (16, 2, 4, 4) and ob.tracked.shape == (16, 2)
+    for f in TSP.FrameOut._fields:
+        for b, single in enumerate((o0, o1)):
+            assert torch.equal(getattr(ob, f)[:, b], getattr(single, f)), (f, b)
+    # final states stacked over B: tensors gain a lane axis, host values a tuple
+    assert stb.ms.kf_id.shape == (2, KW["kf_capacity"])
+    assert stb.tstate == (st0.tstate, st1.tstate)
+    assert stb.kf_cursor == (st0.kf_cursor, st1.kf_cursor)
+    for b, single in enumerate((st0, st1)):
+        for f in TSP.MapState._fields:
+            assert torch.equal(getattr(stb.ms, f)[b], getattr(single.ms, f)), (f, b)
+        assert torch.equal(stb.cur_pose.t[b], single.cur_pose.t)
+    assert len(stats["lanes"]) == 2
+    assert stats["frames"] == 32 and stats["kf_events"] == sum(
+        s["kf_events"] for s in stats["lanes"])
+
+
+def test_batched_scan_culls_in_every_lane():
+    """Two 12-frame sequences (seed 7: frames 0-11 and 12-23), an 8-slot
+    ring, culling on with options that keep the landmarks and remove
+    keyframes: each lane equals ``run_scan_pipeline`` of its sequence bit for
+    bit, every frame tracks, and the lanes' culling counters add up."""
+    grays, depths, _ = sequence(24, 7)
+    g2 = np.stack([grays[:12], grays[12:]])
+    d2 = np.stack([depths[:12], depths[12:]])
+    _, tc = cameras()
+    opts = TrackingOptions(enable_culling=True, min_landmark_observations=1,
+                           kf_min_shared_observations=1, max_keyframes=3)
+    kw = dict(kf_capacity=8, lm_capacity=16384)
+    stats = {}
+    stb, ob = TSP.run_scan_pipeline_batched(tc, g2, d2, opts, device="cpu",
+                                            stats=stats, **kw)
+    for b in range(2):
+        s1 = {}
+        st1, o1 = TSP.run_scan_pipeline(tc, g2[b], d2[b], opts, device="cpu",
+                                        stats=s1, **kw)
+        for f in TSP.FrameOut._fields:
+            assert torch.equal(getattr(ob, f)[:, b], getattr(o1, f)), (f, b)
+        for f in TSP.MapState._fields:
+            assert torch.equal(getattr(stb.ms, f)[b], getattr(st1.ms, f)), (f, b)
+        for k in ("kf_events", "kf_culled", "lm_culled"):
+            assert stats["lanes"][b][k] == s1[k], (k, b)
+        # the single run also reads the extraction's image statistics
+        assert stats["lanes"][b]["host_syncs"] == s1["host_syncs"] - 1
+    assert bool(ob.tracked.all())
+    assert stats["kf_culled"] > 0 and stats["lm_culled"] > 0
+    assert stats["kf_culled"] == sum(s["kf_culled"] for s in stats["lanes"])
+
+
+def test_batched_scan_defaults_to_the_card():
+    import inspect
+
+    sig = inspect.signature(TSP.run_scan_pipeline_batched)
+    assert sig.parameters["device"].default == "cuda"

@@ -1,7 +1,8 @@
 """The JAX package's accuracy at the bench shapes of BASELINE configs 5, 2b
-and 2, run on the CPU: the references that ``chip_smoke.py`` holds the
-PyTorch port's card runs to (its ``LANES_*_JAX``, ``MONO_OFF_*_JAX`` and
-``MONO_SCAN_*_JAX`` constants).
+and 2 and of the scan with map culling on, run on the CPU: the references
+that ``chip_smoke.py`` holds the PyTorch port's card runs to (its
+``LANES_*_JAX``, ``MONO_OFF_*_JAX``, ``MONO_SCAN_*_JAX`` and ``CULL_*_JAX``
+constants).
 
 - config 5: the 240-frame bench loop (scene seed 5) in 8 staggered
   windows of 120 frames (starts 30 k, wrapping), RGB-D, each window run as
@@ -11,10 +12,20 @@ PyTorch port's card runs to (its ``LANES_*_JAX``, ``MONO_OFF_*_JAX`` and
 - config 2b: the loop tiled 4 times at stride 4 (240 frames), zero depth,
   the monocular offline pipeline with bench.py's budget; scale-aligned ATE;
 - config 2: 60 frames at stride 4, zero depth, the online scan with the
-  monocular option set; scale-aligned ATE.
+  monocular option set; scale-aligned ATE;
+- cull: the 240-frame RGB-D scan with ``enable_culling=True`` (64-slot
+  ring, 1 << 17 landmarks); rigid ATE, keyframe events, the final map's
+  keyframes and landmarks, and the keyframes culling removed among those
+  the ring cannot have overwritten (``culled_keyframes``). With the default
+  culling options the run collapses (every one-view depth landmark is
+  culled at once);
+- cull_keep: the same scan with the culling options under which it stays
+  healthy and removes keyframes (``CULL_KEEP``: one observation keeps a
+  landmark and makes it shared, at most 8 keyframes); chip_smoke.py's
+  ``CULL_KEEP_*_JAX``.
 
 Run from the repository root:
-``JAX_PLATFORMS=cpu python3 tools/port_jax_references.py [--configs 5 2b 2]``.
+``JAX_PLATFORMS=cpu python3 tools/port_jax_references.py [--configs 5 2b 2 cull cull_keep]``.
 Prints one JSON line per config.
 """
 
@@ -100,6 +111,46 @@ def config2(cam, opts, grays, gts) -> dict:
             "landmarks": int(np.asarray(out.n_landmarks)[-1])}
 
 
+CULL_KEEP = dict(min_landmark_observations=1, kf_min_shared_observations=1,
+                 max_keyframes=8)
+
+
+def culled_keyframes(is_keyframe, n_keyframes, init_frame_id, kf_id,
+                     kf_capacity: int) -> int:
+    """Keyframes that culling removed, read from a scan's outputs (the JAX
+    scan keeps no counter): of the last ``kf_capacity`` keyframes inserted
+    since the last initialization (the ring cannot have overwritten these),
+    how many the final map no longer holds. 0 when the run ended on a
+    cleared map (a tracking reset removes everything, culled or not)."""
+    is_kf = np.asarray(is_keyframe, bool)
+    n_kf = np.asarray(n_keyframes)
+    inits = [i for i in np.flatnonzero(is_kf)
+             if n_kf[i] == 2 and (i == 0 or n_kf[i - 1] == 0)]
+    if not inits or n_kf[-1] == 0:
+        return 0
+    inserted = [int(init_frame_id)] + [int(i) for i in np.flatnonzero(is_kf)
+                                       if i >= inits[-1]]
+    alive = set(int(i) for i in np.asarray(kf_id) if i >= 0)
+    return sum(1 for f in inserted[-kf_capacity:] if f not in alive)
+
+
+def config_cull(cam, opts, grays, depths, gts, name="cull", **cull_opts) -> dict:
+    from visionx_slam_tpu.tracking.scan_pipeline import run_scan_pipeline
+
+    st, out = run_scan_pipeline(
+        cam, grays, depths,
+        dataclasses.replace(opts, enable_culling=True, **cull_opts))
+    tr = np.asarray(out.tracked)
+    return {"config": name, "frames": len(grays), "tracked": int(tr.sum()),
+            "ate_m": _ate(out.pose, tr, gts, False),
+            "keyframe_events": int(np.asarray(out.is_keyframe).sum()),
+            "keyframes": int(np.asarray(out.n_keyframes)[-1]),
+            "landmarks": int(np.asarray(out.n_landmarks)[-1]),
+            "culled_keyframes": culled_keyframes(
+                out.is_keyframe, out.n_keyframes, st.init_frame_id,
+                st.ms.kf_id, st.ms.kf_capacity)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--configs", nargs="+", default=["5", "2b", "2"])
@@ -115,7 +166,10 @@ def main() -> int:
     opts = TrackingOptions()
     runs = {"5": lambda: config5(cam, opts, grays, depths, gts),
             "2b": lambda: config2b(cam, opts, grays, gts),
-            "2": lambda: config2(cam, opts, grays, gts)}
+            "2": lambda: config2(cam, opts, grays, gts),
+            "cull": lambda: config_cull(cam, opts, grays, depths, gts),
+            "cull_keep": lambda: config_cull(cam, opts, grays, depths, gts,
+                                             "cull_keep", **CULL_KEEP)}
     for c in args.configs:
         t0 = time.perf_counter()
         res = runs[c]()

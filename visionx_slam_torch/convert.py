@@ -24,7 +24,7 @@ from .models.orb_torch import (
 from .models.matching import MatchResult
 from .ops.camera import CameraParams, make_camera
 from .ops.se3 import Pose
-from .tracking.mapstate import MapState
+from .tracking.mapstate import MapState, PairLinks
 from .tracking.scan_pipeline import ScanState
 from .tracking.stages import FrameObs
 
@@ -32,7 +32,8 @@ __all__ = [
     "FAST_CIRCLE", "_atlas_layout", "_brief_bank", "_gaussian_kernel1d",
     "_level_quotas", "brief_pattern", "camera_from_numpy",
     "frameobs_from_numpy", "mapstate_from_numpy", "mapstate_to_numpy",
-    "match_from_numpy", "pose_from_numpy", "scanstate_from_numpy",
+    "match_from_numpy", "pairlinks_from_numpy", "pose_from_numpy",
+    "scanstate_from_numpy",
 ]
 
 
@@ -72,6 +73,15 @@ def match_from_numpy(res, device="cpu") -> MatchResult:
     """A match table; indices widen to int64."""
     return MatchResult(_tensor(res.idx, device, torch.long),
                        _tensor(res.dist, device), _tensor(res.valid, device))
+
+
+def pairlinks_from_numpy(links, device="cpu") -> PairLinks:
+    """The offline map's link tables; the sort tables widen to int64."""
+    return PairLinks(created=_tensor(links.created, device),
+                     adopter=_tensor(links.adopter, device),
+                     creator=_tensor(links.creator, device),
+                     order=_tensor(links.order, device, torch.long),
+                     sidx=_tensor(links.sidx, device, torch.long))
 
 
 def scanstate_from_numpy(st, device="cpu") -> ScanState:

@@ -170,7 +170,8 @@ def global_ba(ms: MapState, cam: CameraParams,
     cost = total_obs = None
     for _ in range(opts.max_iterations):
         err, pc, obs, w = residuals(q, t, lm_pos)
-        cost = seg_rows(w * (err * err).sum(-1))
+        # gated out: 0 x a non-finite error stays 0
+        cost = seg_rows(torch.where(obs, w * (err * err).sum(-1), 0.0))
         total_obs = seg_rows(obs.to(torch.int32)).to(torch.int32)
 
         # per-observation Jacobians

@@ -21,7 +21,8 @@ import torch
 from ..ops.index import stable_argsort
 from ..ops.se3 import Pose
 
-FREE = -1      # feature has no landmark (-2 marks an outlier feature)
+FREE = -1      # feature has no landmark
+OUTLIER = -2   # feature detached from a culled landmark
 
 
 class MapState(NamedTuple):
@@ -173,6 +174,28 @@ def allocate_landmarks(ms: MapState, want: torch.Tensor, pos: torch.Tensor,
     ms.next_lm.copy_(torch.clamp(ms.next_lm + n_wanted, max=L))
     ms.lm_dropped.add_(n_wanted - n_created)
     return ms, slots.to(torch.int32)
+
+
+def remove_landmarks(ms: MapState, kill: torch.Tensor) -> MapState:
+    """Kill the landmarks of ``kill`` [Lp] bool (in place): their feature
+    links become OUTLIER and their observation counts zero."""
+    lm = ms.kf_feat_lm
+    pointed = (lm >= 0) & kill[lm.clamp(0, ms.lm_physical - 1).long()]
+    ms.kf_feat_lm.masked_fill_(pointed, OUTLIER)
+    ms.lm_alive.logical_and_(~kill)
+    ms.lm_obs.masked_fill_(kill, 0)
+    return ms
+
+
+def remove_keyframe_slot(ms: MapState, slot: int) -> MapState:
+    """Remove the keyframe of ``slot`` (in place): its landmarks lose one
+    observation each (when the slot was alive) and the slot is cleared."""
+    links = ms.kf_feat_lm[slot]
+    _links_delta(ms, links, (ms.kf_id[slot] >= 0).expand_as(links), -1)
+    ms.kf_id[slot].fill_(-1)
+    ms.kf_fvalid[slot].zero_()
+    ms.kf_feat_lm[slot].fill_(FREE)
+    return ms
 
 
 def compact_landmarks(ms: MapState) -> MapState:

@@ -111,15 +111,18 @@ class FrameRecord(NamedTuple):
 
 class ScanCounters:
     """What a run did that the outputs do not show: device-to-host reads
-    made by the step's decisions (local BA's convergence reads included),
-    landmark compactions, keyframe events and the local BA iterations they
-    ran (a device scalar, read once)."""
+    made by the step's decisions (local BA's convergence reads and the
+    keyframe culling's included), landmark compactions, keyframe events,
+    the keyframes culling removed, and the local BA iterations and culled
+    landmarks (device scalars, read once)."""
 
     def __init__(self, device=None):
         self.host_syncs = 0
         self.compactions = 0
         self.kf_events = 0
+        self.kf_culled = 0
         self.ba_iterations = torch.zeros((), dtype=torch.int64, device=device)
+        self.lm_culled = torch.zeros((), dtype=torch.int64, device=device)
         # host wall seconds per stage: every frame ends in a device read,
         # so on a host-bound loop these are the stages' real times
         self.seconds = {"extract": 0.0, "init": 0.0, "track": 0.0, "keyframe": 0.0}
@@ -225,8 +228,6 @@ def build_scan_step(
     if stage_limit != 2:
         raise NotImplementedError("only the full pipeline (stage_limit=2) is "
                                   "ported; the other stage limits profile the TPU")
-    if opts.enable_culling:
-        raise NotImplementedError("map culling (enable_culling) is not ported")
     W_IMG, H_IMG = img_wh
     N = n_features_cap
     K = kf_capacity
@@ -398,7 +399,7 @@ def build_scan_step(
     def create_keyframe(st: ScanState, obs: FrameObs, frame_id: int,
                         kf_match: matching.MatchResult,
                         next_lm: int | None = None) -> ScanState:
-        """CreateKeyFrame + local BA (tracking.cpp:76-85, 577-584).
+        """CreateKeyFrame + culling + local BA (tracking.cpp:76-85, 577-584).
         ``kf_match``: this frame's raw knn2 match against the previous
         keyframe (reused for triangulation); ``next_lm``: the host's copy of
         the allocation cursor (read from the map when not given)."""
@@ -434,6 +435,22 @@ def build_scan_step(
         ms = stages.triangulate_pair(
             ms, cam, prev_slot, slot, opts.triangulation_min_angle_deg,
             opts.triangulation_max_reproj_error, res=kf_match)
+        if opts.enable_culling:
+            ms, n_culled = stages.cull_landmarks(
+                ms, cam, opts.landmark_max_reproj_error,
+                opts.min_landmark_observations,
+                gate=msl.n_landmarks(ms) >= opts.min_landmarks_for_culling)
+            ms, removed, n_culled2 = stages.cull_keyframes_device(
+                ms, cam, slot, st.init_kf_slot, frame_id,
+                min_keyframes_for_culling=opts.min_keyframes_for_culling,
+                max_keyframes=opts.max_keyframes,
+                kf_min_shared_observations=opts.kf_min_shared_observations,
+                kf_redundant_ratio=opts.kf_redundant_ratio,
+                landmark_max_reproj_error=opts.landmark_max_reproj_error,
+                min_landmark_observations=opts.min_landmark_observations)
+            ctr.host_syncs += 1
+            ctr.kf_culled += removed >= 0
+            ctr.lm_culled += n_culled + n_culled2
         if opts.enable_local_ba:
             ms, ba = local_ba(ms, cam, ba_opts)
             ctr.ba_iterations += ba.iterations
@@ -441,7 +458,8 @@ def build_scan_step(
         return st._replace(
             ms=ms, last_kf_slot=slot, last_kf_id=frame_id,
             cur_pose=msl.map_pose(ms, slot), kf_cursor=st.kf_cursor + 1,
-            # caches refreshed after BA: the next frames PnP against these
+            # caches refreshed after culling and BA: the next frames PnP
+            # against these
             **_kf_cache_fields(ms, slot))
 
     # ------------------------------------------------------------------
@@ -525,8 +543,37 @@ def initial_state(n_features_cap: int = 1024, kf_capacity: int = 64,
 
 
 def resume_state(ms: MapState) -> ScanState:
-    """Rebuilding a scan state from a map snapshot is not ported yet."""
-    raise NotImplementedError("resume_state (checkpoint resume) is not ported")
+    """A ``ScanState`` from a restored ``MapState`` snapshot, so a run can
+    continue a sequence: the newest alive keyframe becomes the reference
+    keyframe and tracking resumes in TRACKING_GOOD by PnP against its
+    landmarks; ``last_obs`` is rebuilt from the keyframe tables (responses
+    are not stored; nothing reads them after extraction); the oldest alive
+    keyframe stands in for the init keyframe. An empty snapshot resumes in
+    INIT. The state holds ``ms`` itself (the scan updates it in place) and
+    copies of everything it takes from the tables. One device read."""
+    dev = ms.kf_q.device
+    n = ms.n_features
+    alive = msl.kf_alive(ms)
+    ids = torch.where(alive, ms.kf_id, -1)
+    ids_min = torch.where(alive, ms.kf_id, torch.iinfo(torch.int32).max)
+    have, slot, init_slot, last_id, cursor = torch.stack([
+        alive.any().long(), torch.argmax(ids), torch.argmin(ids_min),
+        ids.max().long(), ms.next_kf.long()]).tolist()
+    st = initial_state(n, ms.kf_capacity, ms.lm_capacity, dev)._replace(
+        ms=ms, kf_cursor=cursor)
+    if not have:
+        return st
+    obs = FrameObs(
+        px=ms.kf_px[slot].T.clone(),
+        response=torch.zeros((n,), device=dev),
+        desc=ms.kf_desc[slot].clone(),
+        valid=ms.kf_fvalid[slot].clone(),
+        depth=ms.kf_depth[slot].clone(),
+    )
+    return st._replace(
+        tstate=GOOD, last_obs=obs, last_pose=msl.map_pose(ms, slot),
+        cur_pose=msl.map_pose(ms, slot), init_kf_slot=init_slot,
+        last_kf_slot=slot, last_kf_id=last_id, **_kf_cache_fields(ms, slot))
 
 
 def extract_sequence(images_u8: torch.Tensor, depths_m: torch.Tensor,
@@ -549,6 +596,44 @@ def extract_sequence(images_u8: torch.Tensor, depths_m: torch.Tensor,
         torch.cat(p) for p in zip(*parts))
     return (FrameObs(px=px, response=resp, desc=desc, valid=valid, depth=dfeat),
             mean, std, bits, pop)
+
+
+def _scan_frames(step, st: ScanState, frame0: int, obs: FrameObs, bits, pop,
+                 mean: list, std: list):
+    """The serial loop over pre-extracted frames: (final state, records)."""
+    recs = []
+    for i in range(len(mean)):
+        st, rec = step(st, (frame0 + i, _frame_obs(obs, i), bits[i], pop[i],
+                            mean[i], std[i]))
+        recs.append(rec)
+    return st, recs
+
+
+def _frame_out(recs: list, dev) -> FrameOut:
+    def host(vals, dtype):
+        return torch.tensor(vals, dtype=dtype).to(dev)
+
+    return FrameOut(
+        pose=se3_matrix(Pose(torch.stack([r.pose.q for r in recs]),
+                             torch.stack([r.pose.t for r in recs]))),
+        tracked=host([r.tracked for r in recs], torch.bool),
+        state=host([r.state for r in recs], torch.int32),
+        n_matches=host([r.n_matches for r in recs], torch.int32),
+        n_inliers=host([r.n_inliers for r in recs], torch.int32),
+        parallax=host([r.parallax for r in recs], torch.float32),
+        is_keyframe=host([r.is_keyframe for r in recs], torch.bool),
+        n_keyframes=torch.stack([r.n_keyframes for r in recs]),
+        n_landmarks=torch.stack([r.n_landmarks for r in recs]),
+    )
+
+
+def _counter_stats(ctr: ScanCounters, frames: int) -> dict:
+    return dict(frames=frames, host_syncs=ctr.host_syncs,
+                compactions=ctr.compactions, kf_events=ctr.kf_events,
+                kf_culled=ctr.kf_culled,
+                ba_iterations=int(ctr.ba_iterations),
+                lm_culled=int(ctr.lm_culled),
+                stage_seconds=dict(ctr.seconds))
 
 
 def run_scan_pipeline(
@@ -587,36 +672,83 @@ def run_scan_pipeline(
     ctr.lap("extract", t0)
     st = st0 if st0 is not None else initial_state(
         n_features_cap, kf_capacity, lm_capacity, dev)
-    recs = []
-    for i in range(T):
-        st, rec = step(st, (frame0 + i, _frame_obs(obs, i), bits[i], pop[i],
-                            stats_host[i], stats_host[T + i]))
-        recs.append(rec)
-
-    def host(vals, dtype):
-        return torch.tensor(vals, dtype=dtype).to(dev)
-
-    out = FrameOut(
-        pose=se3_matrix(Pose(torch.stack([r.pose.q for r in recs]),
-                             torch.stack([r.pose.t for r in recs]))),
-        tracked=host([r.tracked for r in recs], torch.bool),
-        state=host([r.state for r in recs], torch.int32),
-        n_matches=host([r.n_matches for r in recs], torch.int32),
-        n_inliers=host([r.n_inliers for r in recs], torch.int32),
-        parallax=host([r.parallax for r in recs], torch.float32),
-        is_keyframe=host([r.is_keyframe for r in recs], torch.bool),
-        n_keyframes=torch.stack([r.n_keyframes for r in recs]),
-        n_landmarks=torch.stack([r.n_landmarks for r in recs]),
-    )
+    st, recs = _scan_frames(step, st, frame0, obs, bits, pop,
+                            stats_host[:T], stats_host[T:])
+    out = _frame_out(recs, dev)
     if stats is not None:
-        stats.update(frames=T, host_syncs=ctr.host_syncs,
-                     compactions=ctr.compactions, kf_events=ctr.kf_events,
-                     ba_iterations=int(ctr.ba_iterations),
-                     stage_seconds=dict(ctr.seconds))
+        stats.update(_counter_stats(ctr, T))
     return st, out
 
 
-def run_scan_pipeline_batched(*args, **kwargs):
-    """The vmapped multi-sequence scan is not ported yet."""
-    raise NotImplementedError("run_scan_pipeline_batched is not ported")
+def _stack(vals: list):
+    """Stack the lanes' values of one state field over a leading [B] axis:
+    tensors are stacked, tuples of tensors (the map, observations, poses)
+    field by field, host values become a tuple of B."""
+    v0 = vals[0]
+    if isinstance(v0, torch.Tensor):
+        return torch.stack(vals)
+    if isinstance(v0, tuple):
+        return type(v0)(*(_stack(list(x)) for x in zip(*vals)))
+    return tuple(vals)
 
+
+def run_scan_pipeline_batched(
+    cam: CameraParams,
+    images_u8,               # [B,T,H,W] uint8 (tensor or numpy)
+    depths_m,                # [B,T,H,W] float32
+    opts: TrackingOptions,
+    n_features_cap: int = 1024,
+    kf_capacity: int = 64,
+    lm_capacity: int = 1 << 17,
+    orb_kwargs: dict | None = None,
+    device="cuda",
+    stats: dict | None = None,
+) -> tuple[ScanState, FrameOut]:
+    """The scan over B independent sequences of T frames; returns (final
+    states stacked over B, per-frame outputs [T, B, ...]). In the stacked
+    ``ScanState`` every tensor gains a leading [B] axis and every host
+    value becomes a tuple of B.
+
+    Every lane starts from ``initial_state`` at frame id 0 and draws the
+    per-frame generators of a single run, so lane b equals
+    ``run_scan_pipeline`` of sequence b. Extraction runs once over all B*T
+    frames (K1 once per ``extract_sequence`` chunk). The serial part stays
+    one host loop per lane, one lane after the other (the JAX package vmaps
+    the step and pays every branch in every lane; here a branch not taken
+    costs nothing, and nothing is shared between lanes either).
+
+    ``stats``: if a dict is given, it receives the lanes' counters
+    (``lanes``: a list of B) and their sums."""
+    dev = torch.device(device)
+    images = torch.as_tensor(images_u8).to(dev)
+    depths = torch.as_tensor(depths_m).to(dev, torch.float32)
+    B, T, H, W = images.shape
+    orb_kw = dict(orb_kwargs or {})
+    orb_kw.setdefault("n_slots", n_features_cap)
+    t0 = time.perf_counter()
+    obs, mean, std, bits, pop = extract_sequence(
+        images.reshape(B * T, H, W), depths.reshape(B * T, H, W), orb_kw)
+    stats_host = torch.cat([mean, std]).tolist() if B * T else []
+    extract_s = time.perf_counter() - t0
+
+    def lane(b: int):
+        ctr = ScanCounters(dev)
+        step = build_scan_step(cam, opts, (W, H), n_features_cap=n_features_cap,
+                               kf_capacity=kf_capacity, lm_capacity=lm_capacity,
+                               counters=ctr)
+        lo, hi = b * T, (b + 1) * T
+        st, recs = _scan_frames(
+            step, initial_state(n_features_cap, kf_capacity, lm_capacity, dev),
+            0, FrameObs(*(x[lo:hi] for x in obs)), bits[lo:hi], pop[lo:hi],
+            stats_host[lo:hi], stats_host[B * T + lo:B * T + hi])
+        return st, _frame_out(recs, dev), _counter_stats(ctr, T)
+
+    sts, outs, lane_stats = zip(*(lane(b) for b in range(B)))
+    out = FrameOut(*(torch.stack(x, dim=1) for x in zip(*outs)))
+    if stats is not None:
+        stats.update(
+            lanes=list(lane_stats), frames=B * T, extract_seconds=extract_s,
+            **{k: sum(s[k] for s in lane_stats)
+               for k in ("host_syncs", "compactions", "kf_events", "kf_culled",
+                         "ba_iterations", "lm_culled")})
+    return _stack(list(sts)), out

@@ -1,7 +1,8 @@
 """Tracking stages on the map state (counterpart of
 ``visionx_slam_tpu/tracking/stages.py``): per-frame observations, the init
 feature-distribution gate, depth-backprojected and two-view triangulated
-landmark creation. The map is updated in place (see ``mapstate``)."""
+landmark creation, landmark and keyframe culling. The map is updated in
+place (see ``mapstate``)."""
 
 from __future__ import annotations
 
@@ -164,3 +165,95 @@ def triangulate_pair(ms: MapState, cam: CameraParams, slot_a: int, slot_b: int,
     ms.kf_feat_lm[slot_a] = links_a
     ms.kf_feat_lm[slot_b] = links_b[:N]
     return ms
+
+
+# ---------------------------------------------------------------------------
+# culling
+# ---------------------------------------------------------------------------
+
+def cull_landmarks(ms: MapState, cam: CameraParams, max_reproj: float,
+                   min_obs: int = 2, gate: torch.Tensor | None = None):
+    """CullLandmarks (tracking.cpp:652-750): kill the landmarks with too few
+    observations, no measurable reprojection, any error > 2 x
+    ``max_reproj`` or a mean error > ``max_reproj``. ``gate``: an optional
+    [] bool on the device; nothing is killed where it is False (the
+    caller's ``min_landmarks_for_culling`` test, without a host read).
+    Returns (state, n_culled [] int32).
+
+    The per-landmark sums go through ``index_add_`` into a table with a
+    spare row for the unmeasurable observations; on CUDA its atomics add in
+    any order, so a landmark whose mean error sits within rounding of the
+    threshold may fall on either side from run to run."""
+    L = ms.lm_physical
+    dev = ms.kf_q.device
+    has = msl.kf_alive(ms)[:, None] & ms.kf_fvalid & (ms.kf_feat_lm >= 0)
+    lm = ms.kf_feat_lm.clamp(0, L - 1).long()
+    pw = ms.lm_pos[:, lm].permute(1, 2, 0)                       # [K,N,3]
+    uv, ok, _ = project_pinhole(cam, Pose(ms.kf_q[:, None], ms.kf_t[:, None]), pw)
+    err = torch.linalg.norm(uv - ms.kf_px.transpose(1, 2), dim=-1)
+    measurable = (has & ok).reshape(-1)       # a failed projection is skipped
+    seg = torch.where(measurable, lm.reshape(-1), L)             # spare row L
+    err_flat = torch.where(measurable, err.reshape(-1), 0.0)
+    table = torch.zeros((L + 1, 2), dtype=err.dtype, device=dev).index_add_(
+        0, seg, torch.stack([err_flat, measurable.to(err.dtype)], -1))
+    err_sum, cnt = table[:L, 0], table[:L, 1]
+    err_max = torch.zeros(L + 1, dtype=err.dtype, device=dev).scatter_reduce_(
+        0, seg, err_flat, "amax")[:L]
+    mean_err = err_sum / torch.clamp(cnt, min=1)
+    kill = ms.lm_alive & ((msl.landmark_observation_counts(ms) < min_obs)
+                          | (cnt == 0) | (err_max > 2.0 * max_reproj)
+                          | (mean_err > max_reproj))
+    if gate is not None:
+        kill = kill & gate
+    return msl.remove_landmarks(ms, kill), kill.sum().to(torch.int32)
+
+
+def keyframe_redundancy(ms: MapState, min_shared: int):
+    """Per keyframe, the share of its landmark-bearing features whose
+    landmark is alive and observed by >= ``min_shared`` keyframes
+    (CullKeyFrames, tracking.cpp:775-832): (ratio [K] f32, total [K])."""
+    has = msl.kf_alive(ms)[:, None] & ms.kf_fvalid & (ms.kf_feat_lm >= 0)
+    lm = ms.kf_feat_lm.clamp(0, ms.lm_physical - 1).long()
+    total = has.sum(1)
+    redundant = (has & ms.lm_alive[lm]
+                 & (msl.landmark_observation_counts(ms)[lm] >= min_shared)).sum(1)
+    return redundant.float() / total.clamp(min=1).float(), total
+
+
+def cull_keyframes_device(
+    ms: MapState,
+    cam: CameraParams,
+    last_kf_slot: int,
+    init_kf_slot: int,
+    current_frame_id: int,
+    *,
+    min_keyframes_for_culling: int,
+    max_keyframes: int,
+    kf_min_shared_observations: int,
+    kf_redundant_ratio: float,
+    landmark_max_reproj_error: float,
+    min_landmark_observations: int,
+):
+    """CullKeyFrames (tracking.cpp:775-840): remove at most one redundant
+    keyframe, the first in ascending frame id that is neither the last
+    keyframe, the init keyframe nor the current frame, then cull landmarks
+    again. The decision is a host branch: one device read of (do_cull,
+    slot). Returns (state, removed slot or -1, landmarks culled [] int32)."""
+    K = ms.kf_capacity
+    dev = ms.kf_q.device
+    n_kf = msl.n_keyframes(ms)
+    ratio, total = keyframe_redundancy(ms, kf_min_shared_observations)
+    exceeded = (n_kf > max_keyframes) if max_keyframes > 0 else False
+    slots = torch.arange(K, device=dev)
+    eligible = (msl.kf_alive(ms) & (total > 0) & (slots != last_kf_slot)
+                & (slots != init_kf_slot) & (ms.kf_id != current_frame_id)
+                & (ratio > kf_redundant_ratio) & (exceeded | (ratio > 0.95)))
+    ids = torch.where(eligible, ms.kf_id, torch.iinfo(torch.int32).max)
+    do_cull = (n_kf > min_keyframes_for_culling) & eligible.any()
+    do_cull, slot = torch.stack([do_cull.long(), torch.argmin(ids)]).tolist()
+    if not do_cull:
+        return ms, -1, torch.zeros((), dtype=torch.int32, device=dev)
+    ms = msl.remove_keyframe_slot(ms, slot)
+    ms, n_culled = cull_landmarks(ms, cam, landmark_max_reproj_error,
+                                  min_landmark_observations)
+    return ms, slot, n_culled

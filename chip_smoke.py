@@ -18,7 +18,12 @@ global BA over every keyframe it made; the scan stopped at frame 120,
 snapshotted to an npz, reloaded and resumed; the scan with map culling on,
 with the default culling options (the map collapses, as the reference's
 does) and with options under which it stays healthy and removes keyframes;
-and the batched scan over config 5's 8 windows, against 8 single runs.
+the batched scan over config 5's 8 windows, against 8 single runs; and the
+normal entry point: the sequence written to a temporary TUM-layout
+directory, decoded back (bit-equal to the rendered arrays) and mapped by
+``visionx_slam_torch.cli.main.entrypoint`` through ``--pipeline scan``
+(with the full-map global BA), ``offline`` and ``host``, and stopped at a
+snapshot and resumed, the output files read back.
 
 Run from the repository root: ``python3 chip_smoke.py [--frames N]``.
 It exits non-zero (and prints no result) without a CUDA device or when any
@@ -34,6 +39,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import os
 import subprocess
 import sys
 import time
@@ -131,6 +137,29 @@ def check_k1(grays_u8) -> dict:
                           k1_bench.k1_ops(atlas.shape), max_err, ms_k, ms_p)
 
 
+def time_k1_one_frame(gray_u8) -> dict:
+    """K1 at the host path's shape, a one-frame atlas: its time and its
+    plain version's by CUDA events, and its byte bound there."""
+    import torch
+
+    from visionx_slam_torch.models.orb_torch import build_atlas
+    from visionx_slam_torch.ops import detect
+    from visionx_slam_torch.tools import k1_bench
+
+    atlas, mask = build_atlas(torch.as_tensor(gray_u8).cuda()[None])
+    k1_bench.check_k1([("one-frame atlas", atlas, mask)])
+    n_bytes = k1_bench.k1_bytes(atlas.shape)
+    out = {"shape": list(atlas.shape), "bytes": n_bytes,
+           "ms": _time_ms(lambda: detect.fast_harris_blur(atlas, mask)),
+           "plain_ms": _time_ms(lambda: detect.fast_harris_blur_reference(atlas, mask)),
+           "bound_ms": max(k1_bench.bound_ms(n_bytes),
+                           k1_bench.k1_ops(atlas.shape) / k1_bench.F32_OPS_PER_S * 1e3)}
+    print(f"K1 {tuple(atlas.shape)}: {out['ms']:.4f} ms, plain "
+          f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.5f} ms ({_card()})",
+          flush=True)
+    return out
+
+
 def check_k1b(grays_u8) -> dict:
     """K1b against its plain version, bit for bit and to K1's tolerances,
     on the float32 atlas of rendered frames, the edge shapes and a 2-D
@@ -219,6 +248,10 @@ HOLE_LM_JAX = 57999
 # scale-aligned ATE 18.2-239.5 mm (median 22.8 mm); the package's own draw
 # reads 55/60 at 149.3 mm. The port's scan is held to the median draw.
 LANES_B, LANES_T = 8, 120
+# The batched scan runs the first half of each window: its checks compare
+# the port with itself (lane against single run), and the 8 lanes plus the 8
+# single runs are the longest phase of the script.
+BSCAN_T = 60
 LANES_ATE_JAX = (0.005571, 0.005413, 0.004859, 0.003390,
                  0.003650, 0.003943, 0.004718, 0.005709)
 MONO_OFF_ATE_JAX = 0.357560
@@ -727,9 +760,9 @@ def run_culling(grays, depths, gt_t, **cull_opts) -> dict:
 
 
 def run_batched_scan(grays, depths, gt_t) -> dict:
-    """The batched scan over config 5's 8 staggered 120-frame windows (a
-    warm-up run, then a counted, timed run), and the 8 windows as single
-    runs one after the other in the same call."""
+    """The batched scan over the first ``BSCAN_T`` frames of config 5's 8
+    staggered windows (a warm-up run, then a counted, timed run), and the 8
+    windows as single runs one after the other in the same call."""
     import numpy as np
     import torch
 
@@ -741,7 +774,7 @@ def run_batched_scan(grays, depths, gt_t) -> dict:
     cam, opts = _camera(), TrackingOptions()
     T = len(grays)
     starts = [(k * T) // LANES_B for k in range(LANES_B)]
-    Tw = min(LANES_T, T)
+    Tw = min(BSCAN_T, T)
     g2, d2, gt2 = (np.concatenate([x, x]) for x in (grays, depths, gt_t))
     g = torch.as_tensor(np.stack([g2[s:s + Tw] for s in starts])).cuda()
     d = torch.as_tensor(np.stack([d2[s:s + Tw] for s in starts])).cuda()
@@ -786,6 +819,178 @@ def run_batched_scan(grays, depths, gt_t) -> dict:
             "host_syncs_per_frame": stats["host_syncs"] / (LANES_B * Tw)}
 
 
+# The JAX package's ``System`` on ``--pipeline host`` with ``extractor=jax``
+# over the same 240-frame sequence on disk, on the CPU
+# (tools/port_jax_references.py --configs host): 240/240 tracked at ATE
+# 4.4006 mm, 76 keyframe flags, a final map of 64 keyframes (the full ring)
+# and 78,000 landmarks.
+HOST_TRACKED_JAX = 240
+HOST_ATE_JAX = 0.004401
+HOST_KF_JAX = 76
+HOST_FINAL_KF_JAX = 64
+HOST_FINAL_LM_JAX = 78000
+SEQUENCE = "rgbd_dataset_freiburg3_synthetic"
+
+
+def host_environment() -> dict:
+    """What the host around the card has for the loaders and the plotter,
+    and whether the native decode library builds there."""
+    import importlib.util
+    import shutil
+
+    from visionx_slam_torch.data import native_loader
+
+    env = {tool: shutil.which(tool) is not None for tool in ("make", "g++")}
+    env["png.h"] = any(os.path.isfile(os.path.join(d, "png.h")) for d in
+                       ("/usr/include", "/usr/local/include",
+                        "/usr/include/libpng16", "/usr/include/x86_64-linux-gnu"))
+    for mod in ("scipy", "PIL", "matplotlib", "cv2", "jax"):
+        env[mod] = importlib.util.find_spec(mod) is not None
+    env["native_loader_built"] = native_loader.available()
+    return env
+
+
+def _cli(dataset_dir: str, out: str, *flags: str) -> dict:
+    """One call of the port's command line; returns metrics.json, with the
+    K1 launches of the call and its wall seconds."""
+    import torch
+
+    from visionx_slam_torch.cli.main import entrypoint
+    from visionx_slam_torch.ops import detect
+
+    detect.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = entrypoint(["--dataset_dir", dataset_dir, "--sequence", SEQUENCE,
+                     "--output_dir", out, *flags])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _require(rc == 0, f"the command line returned {rc}")
+    for name in ("trajectory.txt", "metrics.json", "map_snapshot.npz", "map.ply"):
+        _require(os.path.isfile(os.path.join(out, name)), f"{out} holds {name}")
+    with open(os.path.join(out, "metrics.json")) as f:
+        metrics = json.load(f)
+    if not os.path.isfile(os.path.join(out, "frames.jsonl")):
+        # the offline pipeline writes none, in either package
+        _require("offline" in flags, f"{out} holds frames.jsonl")
+    else:
+        with open(os.path.join(out, "frames.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        _require(len(recs) == metrics["n_frames"],
+                 "frames.jsonl has one record per frame")
+        metrics["keyframe_flags"] = sum(r["is_keyframe"] for r in recs)
+    metrics["k1_launches"] = detect.launches
+    metrics["cli_seconds"] = wall
+    return metrics
+
+
+def _brief(m: dict) -> dict:
+    keep = ("n_frames", "n_tracked", "n_keyframes", "n_landmarks", "ate_rmse",
+            "rpe_trans_rmse", "rpe_rot_rmse", "fps", "scan_fps", "scan_time_s",
+            "decode_time_s", "wall_time_s", "cli_seconds", "loader", "device",
+            "k1_launches", "host_reads_per_frame", "global_ba", "scan_stats",
+            "keyframe_flags")
+    out = {k: m[k] for k in keep if k in m}
+    out["stage_seconds"] = {k: v["total_s"] for k, v in m["stage_timings"].items()}
+    return out
+
+
+def run_system(grays, depths, gt_t) -> dict:
+    """The normal entry point over the sequence on disk (see the module
+    docstring); returns one record per command-line run."""
+    import tempfile
+
+    import numpy as np
+
+    from visionx_slam_torch.data import native_loader, synthetic, tum
+    from visionx_slam_torch.eval import trajectory as traj
+    from visionx_slam_torch.system.system import load_snapshot_full
+
+    T = len(grays)
+    res: dict = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        synthetic.generate_sequence(root, n_frames=T, seed=5)
+        res["write_seconds"] = time.perf_counter() - t0
+        ds = tum.TumDataset(root, SEQUENCE)
+        _require(ds.load() and len(ds.entries) == T, f"the dataset associates {T} frames")
+        t0 = time.perf_counter()
+        for i, e in enumerate(ds.entries):
+            _require(np.array_equal(tum.load_rgb_gray(e.rgb_path), grays[i])
+                     and np.array_equal(tum.load_depth_m(e.depth_path), depths[i])
+                     and np.array_equal(e.gt_t, gt_t[i]),
+                     f"frame {i} decodes to the rendered arrays bit for bit")
+        res["python_decode_seconds"] = time.perf_counter() - t0
+        if native_loader.available():
+            t0 = time.perf_counter()
+            pf = native_loader.NativePrefetcher(
+                [e.rgb_path for e in ds.entries], [e.depth_path for e in ds.entries],
+                queue_depth=8, n_threads=2)
+            gap = 0.0
+            for i, (g, d) in enumerate(pf):
+                _require(np.array_equal(g, grays[i]),
+                         f"frame {i}: the native gray equals the rendered one")
+                gap = max(gap, float(np.abs(d - depths[i]).max()))
+            pf.close()
+            res["native_decode_wall_seconds"] = time.perf_counter() - t0
+            res["native_decode_thread_seconds"] = pf.decode_seconds()
+            res["native_depth_max_gap_m"] = gap
+            # the library multiplies by 1/5000 where the Python loader divides
+            _require(gap <= 1e-6, f"native depth within 1e-6 m: {gap}")
+
+        out = lambda name: os.path.join(root, "out_" + name)
+        # 1. scan, streamed from disk, with the full-map global BA
+        m = _cli(root, out("scan"), "--pipeline", "scan", "--run_global_ba", "true")
+        ts, mats = traj.read_tum_trajectory(os.path.join(out("scan"), "trajectory.txt"))
+        _require(len(ts) == m["n_tracked"], "trajectory.txt has one row per tracked frame")
+        kts, _ = traj.read_tum_trajectory(
+            os.path.join(out("scan"), "trajectory_keyframes_gba.txt"))
+        # the union map's keyframes where the archive outgrew the ring
+        n_refined = m["global_ba"].get("archived_keyframes", m["n_keyframes"])
+        _require(len(kts) == n_refined,
+                 "trajectory_keyframes_gba.txt has one row per refined keyframe")
+        ms, meta = load_snapshot_full(os.path.join(out("scan"), "map_snapshot.npz"))
+        _require(meta == {"next_frame_id": T} and int((ms.kf_id >= 0).sum()) == len(kts),
+                 "the snapshot of the refined union map loads")
+        res["scan"] = _brief(m)
+        full_ts, full_xyz = ts, mats[:, :3, 3]
+
+        # 2. offline
+        res["offline"] = _brief(_cli(root, out("offline"), "--pipeline", "offline"))
+
+        # 3. host (the default pipeline)
+        res["host"] = _brief(_cli(root, out("host")))
+
+        # 4. stop at a snapshot, resume on a directory holding the rest
+        cut = T // 2
+        _cli(root, out("first"), "--pipeline", "scan", "--max_frames", str(cut))
+        rest = os.path.join(root, "rest")
+        os.makedirs(os.path.join(rest, SEQUENCE))
+        with open(os.path.join(root, "color_camera_freiburg3.txt")) as f:
+            intr = f.read()
+        with open(os.path.join(rest, "color_camera_freiburg3.txt"), "w") as f:
+            f.write(intr)
+        for sub in ("rgb", "depth"):
+            os.symlink(os.path.join(root, SEQUENCE, sub),
+                       os.path.join(rest, SEQUENCE, sub))
+        for name in ("rgb.txt", "depth.txt", "groundtruth.txt"):
+            with open(os.path.join(root, SEQUENCE, name)) as f:
+                lines = f.read().splitlines()
+            with open(os.path.join(rest, SEQUENCE, name), "w") as f:
+                f.write("\n".join(lines[:2] + lines[2 + cut:]) + "\n")
+        m = _cli(rest, out("second"), "--pipeline", "scan", "--resume_from",
+                 os.path.join(out("first"), "map_snapshot.npz"))
+        rts, rmats = traj.read_tum_trajectory(
+            os.path.join(out("second"), "trajectory.txt"))
+        pairs = traj.associate_trajectories(rts, full_ts, max_diff=1e-4)
+        gap = max(float(np.abs(rmats[i, :3, 3] - full_xyz[j]).max()) for i, j in pairs)
+        _, meta = load_snapshot_full(os.path.join(out("second"), "map_snapshot.npz"))
+        res["resume"] = dict(_brief(m), frames_compared=len(pairs),
+                             max_position_gap_m=gap,
+                             next_frame_id=meta["next_frame_id"])
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=240)
@@ -807,6 +1012,8 @@ def main() -> int:
     from visionx_slam_torch.data import synthetic
     from visionx_slam_torch.ops import detect
 
+    print("host " + json.dumps(host_environment()), flush=True)
+
     # ---- 2. build K1 from the checkout ----
     t0 = time.perf_counter()
     detect.build_kernel()
@@ -819,6 +1026,7 @@ def main() -> int:
           flush=True)
     check_atlas(grays[:8])
     k1 = check_k1(grays[:8])
+    k1["one_frame"] = time_k1_one_frame(grays[0])
     k1b = check_k1b(grays[:8])
 
     # ---- 4. the offline pipeline ----
@@ -1074,6 +1282,57 @@ def main() -> int:
           f", the offline folded lanes {lanes['aggregate_fps']:.1f} aggregate fps "
           f"({card})", flush=True)
 
+    # ---- 16. the normal entry point, from files on disk ----
+    sysr = run_system(grays, depths, gt_t)
+    print("system " + json.dumps(sysr) + f" ({card})", flush=True)
+    s_scan, s_off, s_host, s_res = (sysr[k] for k in ("scan", "offline", "host", "resume"))
+    for name, m in (("scan", s_scan), ("offline", s_off), ("host", s_host)):
+        _require(m["n_frames"] == T and m["device"] == "cuda",
+                 f"system {name} ran {T} frames on the card")
+        _require(m["k1_launches"] > 0, f"system {name} launched K1")
+    _require(abs(s_scan["n_tracked"] - scan["tracked"]) <= 1
+             and abs(s_scan["ate_rmse"] - scan["ate_m"]) <= 5e-4,
+             f"system scan within one frame and 0.5 mm of the in-memory scan: "
+             f"{s_scan['n_tracked']} vs {scan['tracked']}, {s_scan['ate_rmse']} vs "
+             f"{scan['ate_m']}")
+    _require(s_scan["global_ba"].get("archived_keyframes") == arch["archived"],
+             f"system scan archived {s_scan['global_ba'].get('archived_keyframes')} "
+             f"keyframes, the archive phase {arch['archived']}")
+    _require(s_scan["k1_launches"] == arch["k1_launches"],
+             "system scan launches K1 once per 8 frames of each 64-frame chunk")
+    _require(abs(s_off["n_tracked"] - res["tracked"]) <= 1
+             and abs(s_off["ate_rmse"] - res["ate_m"]) <= 5e-4,
+             f"system offline within one frame and 0.5 mm of the in-memory pipeline: "
+             f"{s_off['n_tracked']} vs {res['tracked']}, {s_off['ate_rmse']} vs "
+             f"{res['ate_m']}")
+    _require(s_host["k1_launches"] == T, "the host path launches K1 once per frame")
+    if T == 240:
+        _require(s_host["n_tracked"] >= 0.95 * HOST_TRACKED_JAX
+                 and s_host["ate_rmse"] <= 2 * HOST_ATE_JAX,
+                 f"system host: tracked {s_host['n_tracked']} >= 95% of JAX's "
+                 f"{HOST_TRACKED_JAX}, ATE {s_host['ate_rmse']} m <= 2 x {HOST_ATE_JAX} m")
+        lo, hi = 0.85 * HOST_KF_JAX, 1.15 * HOST_KF_JAX
+        _require(lo <= s_host["keyframe_flags"] <= hi,
+                 f"system host keyframe flags {s_host['keyframe_flags']} in [{lo}, {hi}]")
+        _require(s_host["n_keyframes"] == HOST_FINAL_KF_JAX
+                 and abs(s_host["n_landmarks"] - HOST_FINAL_LM_JAX)
+                 <= 0.1 * HOST_FINAL_LM_JAX,
+                 f"system host ends on a full ring: {s_host['n_keyframes']} "
+                 f"keyframes, {s_host['n_landmarks']} landmarks")
+    _require(s_res["n_frames"] == T - T // 2 and s_res["next_frame_id"] == T
+             and s_res["frames_compared"] >= s_res["n_frames"] - 2
+             and s_res["max_position_gap_m"] <= 0.010,
+             f"the resumed run's positions within 10 mm of the uninterrupted "
+             f"run: {s_res['max_position_gap_m']} over {s_res['frames_compared']} frames")
+    print(f"system: scan {s_scan['scan_fps']:.1f} fps from disk (in-memory scan "
+          f"{scan['fps']:.1f}), loader {s_scan['loader']}, decode "
+          f"{s_scan['decode_time_s']:.3f} s of threads' time, "
+          f"{s_scan['stage_seconds'].get('decode_wait', 0.0):.3f} s waited for; offline "
+          f"{s_off['scan_fps']:.1f} fps after {s_off['stage_seconds']['decode']:.3f} s "
+          f"of decode (in-memory {res['fps']:.1f}); host {s_host['fps']:.1f} fps, "
+          f"{s_host['host_reads_per_frame']:.2f} device reads per frame, "
+          f"{s_host['k1_launches']} K1 launches ({card})", flush=True)
+
     k1["launches"] = scan["k1_launches"]
     k1b["launches"] = scan["k1b_launches"]
     k1["launches_by_path"] = {
@@ -1083,10 +1342,13 @@ def main() -> int:
         "gba": gba["k1_launches"], "archive": arch["k1_launches"],
         "resume": resume["k1_launches"], "culling": cull["k1_launches"],
         "culling_keep": keep["k1_launches"],
-        "batched_scan": bscan["k1_launches"]}
+        "batched_scan": bscan["k1_launches"],
+        "system_scan": s_scan["k1_launches"],
+        "system_offline": s_off["k1_launches"],
+        "system_host": s_host["k1_launches"]}
     k1b["launches_by_path"] = {"scan": scan["k1b_launches"]}
 
-    # ---- 16. result ----
+    # ---- 17. result ----
     print(json.dumps({"kernels": [k1, k1b]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

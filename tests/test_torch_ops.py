@@ -69,6 +69,106 @@ def test_se3_exp_compose_inverse_apply(rng, scale):
     _close(tse3.se3_matrix(Ct), jse3.se3_matrix(Cj))
 
 
+@pytest.mark.parametrize("scale", [1e-6, 0.3, 2.0])
+def test_se3_log_and_jacobian_inverse(rng, scale):
+    xi = _rand(rng, 64, 6, scale=scale)
+    w = xi[:, 3:]
+    _close(tse3._so3_left_jacobian_inv(t(w)), jse3._so3_left_jacobian_inv(w))
+    q = np.asarray(jse3.so3_exp(w))
+    _close(tse3.so3_log(t(q)), jse3.so3_log(q))
+    _close(tse3.so3_log(t(-q)), jse3.so3_log(-q))        # either sign of q
+    P = jse3.se3_exp(xi)
+    Pq, Pt = np.asarray(P.q), np.asarray(P.t)
+    _close(tse3.se3_log(tse3.Pose(t(Pq), t(Pt))), jse3.se3_log(jse3.Pose(Pq, Pt)))
+    # log inverts exp away from the half turn
+    if scale < 1.0:
+        _close(tse3.se3_log(tse3.se3_exp(t(xi))), xi, atol=1e-4)
+
+
+@pytest.mark.parametrize("fn", ["se3_from_matrix", "se3_from_Rt", "se3_retract_left"])
+def test_se3_constructors(rng, fn):
+    q, tt = _unit_q(rng, 32), _rand(rng, 32, 3)
+    if fn == "se3_retract_left":
+        dx = _rand(rng, 32, 6, scale=0.05)
+        Pt = tse3.se3_retract_left(tse3.Pose(t(q), t(tt)), t(dx))
+        Pj = jse3.se3_retract_left(jse3.Pose(q, tt), dx)
+    else:
+        M = np.asarray(jse3.se3_matrix(jse3.Pose(q, tt)))
+        if fn == "se3_from_matrix":
+            Pt, Pj = tse3.se3_from_matrix(t(M)), jse3.se3_from_matrix(M)
+        else:
+            R, tr = M[:, :3, :3], M[:, :3, 3]
+            Pt, Pj = tse3.se3_from_Rt(t(R), t(tr)), jse3.se3_from_Rt(R, tr)
+    _close(Pt.q, Pj.q)
+    _close(Pt.t, Pj.t)
+
+
+def test_intrinsic_matrix_and_project_distorted(rng):
+    from visionx_slam_tpu.ops.camera import make_camera as jax_camera
+
+    from visionx_slam_torch.ops.camera import make_camera
+
+    args = (517.3, 516.5, 318.6, 255.3, 0.2624, -0.9531, -0.0054, 0.0026)
+    jc, tc = jax_camera(*args), make_camera(*args)
+    _close(tcam.intrinsic_matrix(tc), jcam.intrinsic_matrix(jc), atol=0)
+    pc = np.concatenate([_rand(rng, 50, 2, scale=0.4),
+                         rng.uniform(0.5, 4.0, (50, 1))], -1).astype(np.float32)
+    _close(tcam.project_distorted(tc, t(pc)), jcam.project_distorted(jc, pc),
+           atol=1e-3)                                  # pixels, float32
+
+
+@pytest.mark.parametrize("fn", ["inv2x2", "solve4x4", "chol3x3"])
+def test_small_linalg(rng, fn):
+    n = {"inv2x2": 2, "solve4x4": 4, "chol3x3": 3}[fn]
+    G = _rand(rng, 64, n, n)
+    A = (G @ np.swapaxes(G, 1, 2) + np.eye(n, dtype=np.float32)).astype(np.float32)
+    if fn == "solve4x4":
+        b = _rand(rng, 64, 4)
+        _close(tla.solve4x4(t(A), t(b)), jla.solve4x4(A, b), atol=1e-4)
+        np.testing.assert_allclose(
+            np.einsum("bij,bj->bi", A, to_np(tla.solve4x4(t(A), t(b)))), b, atol=1e-3)
+    elif fn == "inv2x2":
+        _close(tla.inv2x2(t(A)), jla.inv2x2(A))
+        Z = np.zeros((1, 2, 2), np.float32)             # singular: finite
+        _close(tla.inv2x2(t(Z)), jla.inv2x2(Z))
+    else:
+        L = tla.chol3x3(t(A))
+        _close(L, jla.chol3x3(A))
+        _close(L @ L.transpose(1, 2), A, atol=1e-4)
+
+
+def test_pnp_correspondences(rng):
+    """Row i pairs keyframe feature i's landmark with its match's pixel;
+    dead, non-finite and far landmarks and unmatched rows are invalid."""
+    from visionx_slam_tpu.models.matching import MatchResult as JMatch
+    from visionx_slam_tpu.tracking import mapstate as jmsl
+    from visionx_slam_tpu.tracking import stages as jstages
+
+    from visionx_slam_torch import convert
+    from visionx_slam_torch.tracking import stages as tstages
+
+    K, N, L = 4, 32, 96
+    ms = jmsl.empty_map(K, L, N)
+    links = rng.integers(-2, L, (K, N)).astype(np.int32)
+    pos = _rand(rng, 3, L + N, scale=2.0)
+    pos[:, 3], pos[0, 7] = np.nan, 5000.0
+    ms = ms._replace(kf_feat_lm=links, lm_pos=pos, lm_alive=rng.random(L + N) < 0.8)
+    obs_px = rng.uniform(0, 640, (N, 2)).astype(np.float32)
+    idx = rng.integers(0, N, N).astype(np.int32)
+    mvalid = rng.random(N) < 0.7
+    zeros = np.zeros(N, np.float32)
+    jobs = jstages.FrameObs(obs_px, zeros, np.zeros((N, 32), np.uint8), mvalid, zeros)
+    pj, xj, vj = jstages.pnp_correspondences(ms, np.int32(2), jobs, JMatch(idx, zeros, mvalid))
+    tms = convert.mapstate_from_numpy(ms)
+    pt, xt, vt = tstages.pnp_correspondences(
+        tms, 2, convert.frameobs_from_numpy(jobs),
+        convert.match_from_numpy(JMatch(idx, zeros, mvalid)))
+    np.testing.assert_array_equal(to_np(vt), np.asarray(vj))
+    assert 0 < int(to_np(vt).sum()) < int(mvalid.sum())
+    _close(xt, xj, atol=0)
+    np.testing.assert_array_equal(to_np(pt)[to_np(vt)], np.asarray(pj)[np.asarray(vj)])
+
+
 def test_camera(rng):
     jc, tc = cameras()
     px = (rng.uniform(0, 640, (50, 2))).astype(np.float32)

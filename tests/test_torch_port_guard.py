@@ -2,15 +2,20 @@
 ``visionx_slam_tpu`` (the GPU host has no jax and no cv2) — every module,
 and the offline pipeline (one lane, folded lanes, monocular), the online
 scan (plain, with culling, batched, archived with the full-map global BA,
-resumed from a snapshot) and ``pair_ba`` run end to end — and its
-in-memory sequence is bit-for-bit the one the bench loads from PNGs."""
+resumed from a snapshot), ``pair_ba`` and the ``System`` class on a
+sequence it wrote to disk (``scan``, ``offline`` and ``host``) run end to
+end — and its in-memory sequence is bit-for-bit the one the bench loads
+from PNGs."""
 
+import os
 import subprocess
 import sys
 
 import numpy as np
 
 from visionx_slam_torch.data import synthetic
+
+from torch_parity import SINGLE_THREAD_ENV
 
 _GUARD = r"""
 import importlib, pkgutil, sys
@@ -78,6 +83,25 @@ with tempfile.TemporaryDirectory() as tmp:
                                              run_gba=False, resume_from=snap,
                                              device="cpu", **kw)
     assert bool(outr.tracked.all())
+    from visionx_slam_torch.cli.main import parse_config
+    from visionx_slam_torch.data import tum
+    synthetic.generate_sequence(tmp, n_frames=4, seed=5)
+    seq = "rgbd_dataset_freiburg3_synthetic"
+    ds = tum.TumDataset(tmp, seq)
+    assert ds.load() and np.array_equal(tum.load_rgb_gray(ds.entries[3].rgb_path), g[3])
+    for pipeline in ("scan", "offline", "host"):
+        cfg = parse_config(["--dataset_dir", tmp, "--sequence", seq, "--device", "cpu",
+                            "--output_dir", os.path.join(tmp, pipeline),
+                            "--pipeline", pipeline, "--kf_capacity", "8"])
+        summary = system.System(cfg).run()
+        assert summary["n_tracked"] == 4 and summary["ate_rmse"] < 0.02, summary
+        assert os.path.isfile(os.path.join(tmp, pipeline, "map.ply"))
+from visionx_slam_torch.models.orb import OpenCVExtractor
+try:
+    OpenCVExtractor()
+    raise SystemExit("the cv2 extractor was built without cv2")
+except ImportError as e:
+    assert "cv2" in str(e), e
 loaded = [m for m in ("jax", "cv2", "visionx_slam_tpu") if sys.modules.get(m)]
 assert not loaded, loaded
 print("GUARD-OK")
@@ -86,7 +110,8 @@ print("GUARD-OK")
 
 def test_port_imports_no_jax_cv2_or_reference():
     res = subprocess.run([sys.executable, "-c", _GUARD], capture_output=True,
-                         text=True, timeout=300)
+                         text=True, timeout=1200,
+                         env={**os.environ, **SINGLE_THREAD_ENV})
     assert res.returncode == 0 and "GUARD-OK" in res.stdout, res.stderr[-3000:]
 
 

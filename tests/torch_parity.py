@@ -10,6 +10,15 @@ import torch
 
 from visionx_slam_torch.data import synthetic
 
+# One intra-op thread per test process. The suite runs several pytest
+# workers at once; with torch's default of one OpenMP thread per core in
+# each of them the cores are oversubscribed many times over and the
+# spinning threads make every small op crawl (six concurrent 20-frame CPU
+# runs of the port: 375 s with the default, 15 s with one thread each). The
+# port's CPU path is a chain of small ops, which gain nothing from threads.
+torch.set_num_threads(1)
+SINGLE_THREAD_ENV = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
+
 
 @functools.lru_cache(maxsize=4)
 def sequence(n_frames: int, seed: int, frames_per_loop: int = 240):

@@ -22,10 +22,16 @@ constants).
 - cull_keep: the same scan with the culling options under which it stays
   healthy and removes keyframes (``CULL_KEEP``: one observation keeps a
   landmark and makes it shared, at most 8 keyframes); chip_smoke.py's
-  ``CULL_KEEP_*_JAX``.
+  ``CULL_KEEP_*_JAX``;
+- host: the bench sequence written to a temporary TUM-layout directory,
+  then the JAX package's ``System`` with ``--pipeline host`` and
+  ``extractor=jax`` over its first ``--host_frames`` frames (the normal
+  entry point's default path); tracked, rigid ATE, keyframe flags, and
+  the final map's keyframes and landmarks;
+  chip_smoke.py's ``HOST_*_JAX``.
 
 Run from the repository root:
-``JAX_PLATFORMS=cpu python3 tools/port_jax_references.py [--configs 5 2b 2 cull cull_keep]``.
+``JAX_PLATFORMS=cpu python3 tools/port_jax_references.py [--configs 5 2b 2 cull cull_keep host]``.
 Prints one JSON line per config.
 """
 
@@ -151,9 +157,34 @@ def config_cull(cam, opts, grays, depths, gts, name="cull", **cull_opts) -> dict
                 st.ms.kf_id, st.ms.kf_capacity)}
 
 
+def config_host(n_frames: int) -> dict:
+    import tempfile
+
+    from visionx_slam_tpu.system.system import System
+    from visionx_slam_tpu.utils.config import SystemConfig
+    from visionx_slam_torch.data import synthetic
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the port's writer leaves the pixels the JAX package's would
+        # (tests/test_torch_data.py)
+        synthetic.generate_sequence(tmp, n_frames=240, seed=5)
+        system = System(SystemConfig(
+            dataset_dir=tmp, sequence="rgbd_dataset_freiburg3_synthetic",
+            output_dir=os.path.join(tmp, "out"), pipeline="host",
+            extractor="jax", max_frames=n_frames))
+        s = system.run()
+    return {"config": "host", "frames": s["n_frames"], "tracked": s["n_tracked"],
+            "ate_m": s.get("ate_rmse"),
+            "keyframe_flags": sum(r.is_keyframe for r in system.results),
+            "keyframes": s["n_keyframes"], "landmarks": s["n_landmarks"],
+            "fps_cpu": s["fps"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--configs", nargs="+", default=["5", "2b", "2"])
+    ap.add_argument("--host_frames", type=int, default=240,
+                    help="frames of the host-path run (config host)")
     args = ap.parse_args()
 
     from visionx_slam_tpu.ops.camera import make_camera
@@ -168,6 +199,7 @@ def main() -> int:
             "2b": lambda: config2b(cam, opts, grays, gts),
             "2": lambda: config2(cam, opts, grays, gts),
             "cull": lambda: config_cull(cam, opts, grays, depths, gts),
+            "host": lambda: config_host(args.host_frames),
             "cull_keep": lambda: config_cull(cam, opts, grays, depths, gts,
                                              "cull_keep", **CULL_KEEP)}
     for c in args.configs:

@@ -27,13 +27,14 @@ from .ops.se3 import Pose
 from .tracking.mapstate import MapState, PairLinks
 from .tracking.scan_pipeline import ScanState
 from .tracking.stages import FrameObs
+from .utils.config import SystemConfig
 
 __all__ = [
     "FAST_CIRCLE", "_atlas_layout", "_brief_bank", "_gaussian_kernel1d",
     "_level_quotas", "brief_pattern", "camera_from_numpy",
     "frameobs_from_numpy", "mapstate_from_numpy", "mapstate_to_numpy",
     "match_from_numpy", "pairlinks_from_numpy", "pose_from_numpy",
-    "scanstate_from_numpy",
+    "scanstate_from_numpy", "systemconfig_from_dict",
 ]
 
 
@@ -42,6 +43,20 @@ def camera_from_numpy(cam) -> CameraParams:
     package's ``CameraParams`` of 0-d arrays)."""
     return make_camera(*(float(np.asarray(getattr(cam, f)))
                          for f in CameraParams._fields))
+
+
+def systemconfig_from_dict(d: dict, device: str = "cuda") -> SystemConfig:
+    """A port ``SystemConfig`` from the flat dict that either package's
+    ``config_to_dict`` gives (runner fields and tracking options side by
+    side); ``device`` is the port's own field, taken from ``d`` where it is
+    there. An unknown key raises."""
+    cfg = SystemConfig(device=device)
+    for key, value in d.items():
+        owner = cfg.tracking if hasattr(cfg.tracking, key) else cfg
+        if not hasattr(owner, key):
+            raise KeyError(f"not a configuration field: {key}")
+        setattr(owner, key, value)
+    return cfg
 
 
 def mapstate_from_numpy(ms, device="cpu") -> MapState:

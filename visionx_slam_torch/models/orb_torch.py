@@ -313,3 +313,28 @@ def orb_extract(
         desc = torch.gather(desc, 1, order[..., None].expand(-1, -1, 32))
         valid = torch.gather(valid, 1, order)
     return xy, resp, desc, valid
+
+
+class TorchOrbExtractor:
+    """The on-device ORB with the host extractor protocol (numpy image in,
+    numpy ``(px, resp, desc, valid)`` out), the counterpart of the JAX
+    package's ``JaxOrbExtractor``. One frame is a one-frame atlas: on a
+    CUDA ``device`` every ``extract`` launches kernel K1 once."""
+
+    def __init__(self, n_features: int = 1000, scale_factor: float = 1.2,
+                 n_levels: int = 8, n_slots: int = 1024,
+                 fast_threshold: float = 20.0, resize_f32: bool = False,
+                 device="cuda"):
+        self.kwargs = dict(
+            n_features=n_features, scale_factor=scale_factor,
+            n_levels=n_levels, n_slots=n_slots, fast_threshold=fast_threshold,
+            resize_f32=int(resize_f32),
+        )
+        self.n_slots = n_slots
+        self.device = torch.device(device)
+
+    def extract(self, gray: np.ndarray):
+        """gray uint8 [H,W] -> (px [S,2] f32, resp [S] f32, desc [S,32] u8,
+        valid [S] bool), S = n_slots."""
+        g = torch.as_tensor(gray).to(self.device)
+        return tuple(x[0].cpu().numpy() for x in orb_extract(g[None], **self.kwargs))

@@ -47,6 +47,52 @@ def solve3x3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (inv3x3(A) @ b[..., None])[..., 0]
 
 
+def inv2x2(A: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
+    """Batched 2x2 inverse; |det| is clamped to eps with its sign kept."""
+    a, b = A[..., 0, 0], A[..., 0, 1]
+    c, d = A[..., 1, 0], A[..., 1, 1]
+    det = a * d - b * c
+    det_safe = torch.where(det.abs() < eps, torch.where(det < 0, -eps, eps), det)
+    m = torch.stack([torch.stack([d, -b], -1), torch.stack([-c, a], -1)], -2)
+    return m * (1.0 / det_safe)[..., None, None]
+
+
+def solve4x4(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched solve of SPD-ish [..., 4, 4] x [..., 4] by a 2x2-block Schur
+    complement (pivot-free; the leading 2x2 block must be invertible)."""
+    P = A[..., :2, :2]
+    Q = A[..., :2, 2:]
+    R = A[..., 2:, :2]
+    S = A[..., 2:, 2:]
+    b1 = b[..., :2, None]
+    b2 = b[..., 2:, None]
+    Pi = inv2x2(P)
+    RPi = R @ Pi
+    Mi = inv2x2(S - RPi @ Q)
+    y2 = Mi @ (b2 - RPi @ b1)
+    y1 = Pi @ (b1 - Q @ y2)
+    return torch.cat([y1, y2], dim=-2)[..., 0]
+
+
+def chol3x3(A: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
+    """Batched lower Cholesky factor of SPD [..., 3, 3] in closed form."""
+    a00 = torch.sqrt(torch.clamp(A[..., 0, 0], min=eps))
+    l10 = A[..., 1, 0] / a00
+    l20 = A[..., 2, 0] / a00
+    l11 = torch.sqrt(torch.clamp(A[..., 1, 1] - l10 * l10, min=eps))
+    l21 = (A[..., 2, 1] - l20 * l10) / l11
+    l22 = torch.sqrt(torch.clamp(A[..., 2, 2] - l20 * l20 - l21 * l21, min=eps))
+    zero = torch.zeros_like(a00)
+    return torch.stack(
+        [
+            torch.stack([a00, zero, zero], -1),
+            torch.stack([l10, l11, zero], -1),
+            torch.stack([l20, l21, l22], -1),
+        ],
+        -2,
+    )
+
+
 def _chol_solve(A: torch.Tensor, b: torch.Tensor, n: int,
                 eps: float) -> torch.Tensor:
     """Solve SPD [..., n, n] x [..., n] by a fully unrolled scalar Cholesky

@@ -133,6 +133,18 @@ def so3_exp(omega: torch.Tensor) -> torch.Tensor:
     return torch.cat([w, k * omega], dim=-1)
 
 
+def so3_log(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (wxyz) -> axis-angle [...,3]."""
+    q = quat_normalize(q)
+    w = q[..., :1]
+    v = q[..., 1:]
+    vn = torch.linalg.norm(v, dim=-1, keepdim=True)
+    theta = 2.0 * torch.atan2(vn, w)
+    k = torch.where(vn < _EPS, 2.0 / torch.clamp(w, min=_EPS),
+                    theta / torch.clamp(vn, min=_EPS))
+    return k * v
+
+
 def _so3_left_jacobian(omega: torch.Tensor) -> torch.Tensor:
     theta_sq = torch.sum(omega * omega, dim=-1)[..., None, None]
     theta = torch.sqrt(torch.clamp(theta_sq, min=0.0))
@@ -148,12 +160,33 @@ def _so3_left_jacobian(omega: torch.Tensor) -> torch.Tensor:
     return eye + a * O + b * OO
 
 
+def _so3_left_jacobian_inv(omega: torch.Tensor) -> torch.Tensor:
+    theta_sq = torch.sum(omega * omega, dim=-1)[..., None, None]
+    theta = torch.sqrt(torch.clamp(theta_sq, min=0.0))
+    O = so3_hat(omega)
+    OO = O @ O
+    half = 0.5 * theta
+    # k = (1 - theta*cos(t/2)/(2 sin(t/2))) / theta^2, Taylor: 1/12 + theta^2/720
+    cot_term = half * torch.cos(half) / torch.clamp(torch.sin(half), min=_EPS)
+    k = torch.where(theta_sq < 1e-10, 1.0 / 12.0 + theta_sq / 720.0,
+                    (1.0 - cot_term) / torch.clamp(theta_sq, min=_EPS))
+    eye = torch.eye(3, dtype=omega.dtype, device=omega.device).expand_as(O)
+    return eye - 0.5 * O + k * OO
+
+
 def se3_exp(xi: torch.Tensor) -> Pose:
     """se(3) tangent [...,6] = [upsilon, omega] -> Pose."""
     upsilon = xi[..., :3]
     omega = xi[..., 3:]
     V = _so3_left_jacobian(omega)
     return Pose(so3_exp(omega), (V @ upsilon[..., None])[..., 0])
+
+
+def se3_log(T: Pose) -> torch.Tensor:
+    """Pose -> se(3) tangent [...,6] = [upsilon, omega]."""
+    omega = so3_log(T.q)
+    upsilon = (_so3_left_jacobian_inv(omega) @ T.t[..., None])[..., 0]
+    return torch.cat([upsilon, omega], dim=-1)
 
 
 def se3_compose(a: Pose, b: Pose) -> Pose:
@@ -178,3 +211,16 @@ def se3_matrix(T: Pose) -> torch.Tensor:
     bottom = torch.zeros_like(top[..., :1, :])
     bottom[..., 3].fill_(1.0)
     return torch.cat([top, bottom], dim=-2)
+
+
+def se3_from_matrix(M: torch.Tensor) -> Pose:
+    return Pose(matrix_to_quat(M[..., :3, :3]), M[..., :3, 3])
+
+
+def se3_from_Rt(R: torch.Tensor, t: torch.Tensor) -> Pose:
+    return Pose(matrix_to_quat(R), t)
+
+
+def se3_retract_left(T: Pose, dx: torch.Tensor) -> Pose:
+    """Left-multiplicative GN update: exp(dx) * T (reference: local_ba.cpp:173)."""
+    return se3_compose(se3_exp(dx), T)

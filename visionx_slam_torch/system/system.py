@@ -1,10 +1,14 @@
-"""Map snapshots, the keyframe archive and the full-map global BA
-(counterparts of what ``visionx_slam_tpu/system/system.py`` keeps inside its
-``System`` class: ``save_snapshot`` / ``load_snapshot_full``,
-``_harvest_keyframes``, ``_archive_union_map``, ``_run_global_ba`` and the
-chunked scan loop of ``_run_scan``), as plain functions. The ``System``
-class itself (dataset, configuration, outputs, the CLI behind it) is not
-ported yet; it will call these.
+"""System runner: dataset -> extractor -> tracker -> trajectory/metrics
+(counterpart of ``visionx_slam_tpu/system/system.py``).
+
+``System`` runs one sequence from a TUM-layout directory through one of the
+three pipelines (``scan``, ``offline``, ``host``) and leaves the host-side
+sinks that replace the reference's viewer: a TUM-format trajectory,
+per-frame JSONL metrics, ``metrics.json``, a map snapshot for
+checkpoint/resume and a PLY of the map. It is built over plain functions
+that also stand alone: ``save_snapshot`` / ``load_snapshot_full``,
+``harvest_keyframes``, ``archive_union_map``, ``run_global_ba``, the
+chunk-fed scan ``ScanStream`` and ``run_scan_archived``, a loop over it.
 
 A snapshot is a flat npz: one array per ``MapState`` field under the field's
 name, with the JAX package's shapes and dtypes, plus ``_meta_*`` entries
@@ -19,24 +23,40 @@ the ring at chunk boundaries, with chunks no longer than the ring.
 
 from __future__ import annotations
 
+import contextlib
+import json
+import logging
+import os
+import time
+from dataclasses import asdict
+
 import numpy as np
 import torch
 
 from ..convert import mapstate_from_numpy, mapstate_to_numpy
+from ..data import tum
+from ..eval import trajectory as traj
 from ..models.global_ba import GlobalBAOptions, global_ba, map_reproj_error
 from ..models.pair_ba import pair_ba
-from ..ops.camera import CameraParams
+from ..models.orb import OpenCVExtractor, sample_depth_at
+from ..ops.camera import CameraParams, make_camera
 from ..ops.se3 import Pose, se3_matrix
 from ..tracking import mapstate as msl
+from ..tracking.frontend import FrameResult, Tracker
 from ..tracking.mapstate import MapState, PairLinks
-from ..tracking.offline_pipeline import build_keyframe_map
+from ..tracking.offline_pipeline import build_keyframe_map, run_offline_pipeline
 from ..tracking.scan_pipeline import (
     FrameOut,
     ScanState,
     resume_state,
     run_scan_pipeline,
 )
-from ..utils.config import TrackingOptions
+from ..tracking.stages import FrameObs
+from ..utils.config import SystemConfig, TrackingOptions
+from ..utils.logging import JsonlWriter, StageTimer
+from ..utils.rotation import quat_xyzw_to_matrix
+
+log = logging.getLogger("vxs.system")
 
 
 def save_snapshot(path: str, ms: MapState, next_frame_id: int) -> None:
@@ -149,6 +169,71 @@ def run_global_ba(ms: MapState, cam: CameraParams, opts: TrackingOptions,
     }
 
 
+class ScanStream:
+    """The online scan fed chunk by chunk as frames arrive: the state is
+    streamed from ``feed`` to ``feed``, so the whole sequence never has to
+    sit in memory. With ``harvest`` the keyframe archive is topped up after
+    every chunk, and a chunk may then hold at most ``chunk = min(64,
+    kf_capacity)`` frames: a chunk no longer than the ring cannot create and
+    evict a keyframe between two harvests. ``resume_from``: a snapshot npz
+    to continue from (frame ids go on at its ``next_frame_id``)."""
+
+    def __init__(self, cam: CameraParams, opts: TrackingOptions,
+                 kf_capacity: int = 64, n_features_cap: int = 1024,
+                 lm_capacity: int = 1 << 17, orb_kwargs: dict | None = None,
+                 resume_from: str | None = None, harvest: bool = True,
+                 device="cuda"):
+        self.device = torch.device(device)
+        self.chunk = min(64, kf_capacity) if harvest else 64
+        self._harvest = harvest
+        self._cam, self._opts = cam, opts
+        self._kw = dict(n_features_cap=n_features_cap, kf_capacity=kf_capacity,
+                        lm_capacity=lm_capacity, orb_kwargs=orb_kwargs,
+                        device=self.device)
+        self.state: ScanState | None = None
+        self.frame0 = 0               # id of the first frame fed
+        if resume_from:
+            ms0, meta = load_snapshot_full(resume_from, self.device)
+            self.state = resume_state(ms0)
+            self.frame0 = int(meta.get("next_frame_id", 0))
+        self.next_frame = self.frame0
+        self.archive: dict = {}
+        self._outs: list[FrameOut] = []
+        self._totals: dict = {}
+        self._harvest_s = 0.0
+
+    def feed(self, images_u8, depths_m) -> FrameOut:
+        """Scan the next frames ([n,H,W] uint8 and float32, tensors or
+        numpy); returns their outputs."""
+        n = len(images_u8)
+        if self._harvest and n > self.chunk:
+            raise ValueError(f"a chunk of {n} frames could evict a keyframe "
+                             f"before it is archived (at most {self.chunk})")
+        cs: dict = {}
+        self.state, out = run_scan_pipeline(
+            self._cam, images_u8, depths_m, self._opts, st0=self.state,
+            frame0=self.next_frame, stats=cs, **self._kw)
+        self.next_frame += n
+        self._outs.append(out)
+        for k, v in cs.items():
+            if isinstance(v, (int, float)):
+                self._totals[k] = self._totals.get(k, 0) + v
+        if self._harvest:
+            t0 = time.perf_counter()
+            harvest_keyframes(self.archive, self.state.ms)
+            self._harvest_s += time.perf_counter() - t0
+        return out
+
+    def outputs(self) -> FrameOut:
+        """The outputs of every frame fed so far, stacked along T."""
+        return FrameOut(*(torch.cat(x) for x in zip(*self._outs)))
+
+    def stats(self) -> dict:
+        """The chunks' counters summed, and the harvests' host seconds."""
+        return dict(self._totals, chunks=len(self._outs), chunk=self.chunk,
+                    harvest_seconds=self._harvest_s)
+
+
 def run_scan_archived(
     cam: CameraParams,
     images_u8,               # [T,H,W] uint8 (tensor or numpy)
@@ -164,51 +249,440 @@ def run_scan_archived(
     device="cuda",
     stats: dict | None = None,
 ) -> tuple[ScanState, FrameOut, dict, dict | None]:
-    """The online scan over a whole sequence in chunks of ``min(64,
-    kf_capacity)`` frames, the state streamed from chunk to chunk, with the
-    keyframe archive harvested at every chunk boundary (a chunk no longer
-    than the ring cannot create and evict a keyframe between two harvests)
-    and, with ``run_gba``, the full-map global BA at the end.
+    """The online scan over a whole sequence held in memory: a loop over
+    ``ScanStream.feed`` in chunks of ``min(64, kf_capacity)`` frames, the
+    keyframe archive harvested at every chunk boundary and, with
+    ``run_gba``, the full-map global BA at the end.
     ``resume_from``: a snapshot npz to continue from (frame ids go on at its
     ``next_frame_id``). Returns (final state, FrameOut over all frames,
     archive, global-BA summary or None); with ``run_gba`` the final state's
     map is the refined one (the union map when the archive outgrew the
     ring). ``stats``: if a dict is given, it receives the chunks' counters
     summed and the harvests' host seconds."""
-    import time
-
-    dev = torch.device(device)
     images = torch.as_tensor(images_u8)
     depths = torch.as_tensor(depths_m)
-    T = images.shape[0]
-    chunk = min(64, kf_capacity)
-    st, frame0 = None, 0
-    if resume_from:
-        ms0, meta = load_snapshot_full(resume_from, dev)
-        st = resume_state(ms0)
-        frame0 = int(meta.get("next_frame_id", 0))
-    archive: dict = {}
-    outs, totals, harvest_s = [], {}, 0.0
-    for s in range(0, T, chunk):
-        cs: dict = {}
-        st, out = run_scan_pipeline(
-            cam, images[s:s + chunk], depths[s:s + chunk], opts,
-            n_features_cap=n_features_cap, kf_capacity=kf_capacity,
-            lm_capacity=lm_capacity, orb_kwargs=orb_kwargs, st0=st,
-            frame0=frame0 + s, device=dev, stats=cs)
-        outs.append(out)
-        for k, v in cs.items():
-            if isinstance(v, (int, float)):
-                totals[k] = totals.get(k, 0) + v
-        t0 = time.perf_counter()
-        harvest_keyframes(archive, st.ms)
-        harvest_s += time.perf_counter() - t0
-    out = FrameOut(*(torch.cat(x) for x in zip(*outs)))
+    scan = ScanStream(cam, opts, kf_capacity, n_features_cap, lm_capacity,
+                      orb_kwargs, resume_from, device=device)
+    for s in range(0, images.shape[0], scan.chunk):
+        scan.feed(images[s:s + scan.chunk], depths[s:s + scan.chunk])
+    st = scan.state
+    out = scan.outputs()
     gba = None
     if run_gba and st is not None:
-        ms2, gba = run_global_ba(st.ms, cam, opts, archive, gba_iterations, dev)
+        ms2, gba = run_global_ba(st.ms, cam, opts, scan.archive, gba_iterations,
+                                 scan.device)
         st = st._replace(ms=ms2)
     if stats is not None:
-        stats.update(totals, chunks=len(outs), chunk=chunk,
-                     harvest_seconds=harvest_s)
-    return st, out, archive, gba
+        stats.update(scan.stats())
+    return st, out, scan.archive, gba
+
+
+_STATE_NAMES = {0: "INIT", 1: "TRACKING_GOOD", 2: "TRACKING_BAD", 3: "LOST"}
+
+
+class System:
+    """End-to-end runner for one sequence, on ``cfg.device``."""
+
+    def __init__(self, cfg: SystemConfig):
+        self.cfg = cfg
+        self.device = torch.device(cfg.device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "device 'cuda' was asked for and no CUDA device is there "
+                "(pass device='cpu' to run on the CPU)")
+        if cfg.resume_from and cfg.pipeline != "scan":
+            raise ValueError("--resume_from requires --pipeline scan")
+        if cfg.extractor not in ("jax", "torch", "opencv"):
+            raise ValueError(f"unknown extractor: {cfg.extractor!r}")
+        self.dataset = tum.TumDataset(cfg.dataset_dir, cfg.sequence)
+        if not self.dataset.load():
+            raise RuntimeError(
+                f"Failed to load dataset: {cfg.dataset_dir}/{cfg.sequence}"
+            )
+        intr = self.dataset.intrinsics
+        self.cam = make_camera(
+            intr.fx, intr.fy, intr.cx, intr.cy, intr.k1, intr.k2, intr.p1, intr.p2
+        )
+        if cfg.extractor == "opencv":
+            self.extractor = OpenCVExtractor(n_features=cfg.n_features)
+        else:
+            from ..models.orb_torch import TorchOrbExtractor
+
+            self.extractor = TorchOrbExtractor(
+                n_features=cfg.n_features, resize_f32=cfg.orb_resize_f32,
+                device=self.device)
+        self.tracker = Tracker(self.cam, cfg.tracking, device=cfg.device)
+        self.results: list[FrameResult] = []
+        self.timer = StageTimer()
+        self.loader_used = ""    # "native" or "python", once frames were read
+        self._decode_s = 0.0     # seconds spent decoding (worker threads' sum
+                                 # with the native loader)
+        self._frame0 = 0         # id offset when resuming from a snapshot
+        # keyframes harvested at chunk boundaries of the scan path (the ring
+        # evicts; the archive keeps every keyframe so --run_global_ba can
+        # cover the full map, BASELINE config 4)
+        self._archive: dict = {}
+
+    @property
+    def _orb_kwargs(self) -> dict:
+        return {"n_features": self.cfg.n_features,
+                "resize_f32": int(self.cfg.orb_resize_f32)}
+
+    @contextlib.contextmanager
+    def _stage(self, name: str):
+        """A timed stage that ends when the device has finished its work."""
+        with self.timer.stage(name):
+            yield
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+    def _check_finite(self, poses: torch.Tensor, what: str) -> None:
+        """``debug_nans``: raise at the first non-finite pose (one device
+        read per call)."""
+        if self.cfg.debug_nans and not bool(torch.isfinite(poses).all()):
+            raise FloatingPointError(f"non-finite pose in {what}")
+
+    def run(self) -> dict:
+        cfg = self.cfg
+        os.makedirs(cfg.output_dir, exist_ok=True)
+        entries = self.dataset.entries
+        if cfg.max_frames > 0:
+            entries = entries[: cfg.max_frames]
+        if not cfg.profile_dir:
+            return self._dispatch(entries)
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        os.makedirs(cfg.profile_dir, exist_ok=True)
+        with profile(activities=acts) as prof:
+            summary = self._dispatch(entries)
+        prof.export_chrome_trace(os.path.join(cfg.profile_dir, "trace.json"))
+        return summary
+
+    def _dispatch(self, entries) -> dict:
+        if self.cfg.pipeline == "scan":
+            return self._run_scan(entries)
+        if self.cfg.pipeline == "offline":
+            return self._run_offline(entries)
+        return self._run_host(entries)
+
+    def _finish(self, summary: dict) -> dict:
+        summary["stage_timings"] = self.timer.summary()
+        with open(os.path.join(self.cfg.output_dir, "metrics.json"), "w") as f:
+            json.dump(summary, f, indent=2)
+        return summary
+
+    def _write_frames_jsonl(self) -> None:
+        jsonl = JsonlWriter(os.path.join(self.cfg.output_dir, "frames.jsonl"))
+        try:
+            for r in self.results:
+                jsonl.write(_frame_record(r))
+        finally:
+            jsonl.close()
+
+    # ------------------------------------------------------------------
+    def _run_offline(self, entries) -> dict:
+        """Batched offline mapping (tracking/offline_pipeline.py): every
+        stage runs as frame-parallel batches; highest throughput. RGB-D by
+        default; ``cfg.monocular`` switches to the essential + scale-chain
+        variant."""
+        cfg = self.cfg
+        with self.timer.stage("decode"):
+            frames = list(self._frames(entries))
+        grays = np.stack([g for g, _ in frames])
+        depths = np.stack([d for _, d in frames])
+
+        t0 = time.perf_counter()
+        with self._stage("offline_pipeline"):
+            # as many keyframe slots as the sequence can fill (the keyframe
+            # gap bounds them), up to the pipeline's 128: a short run would
+            # only pad the rest
+            gap = max(1, cfg.tracking.min_keyframe_gap)
+            ms, outs = run_offline_pipeline(
+                self.cam, grays, depths, cfg.tracking, device=self.device,
+                orb_kwargs=self._orb_kwargs, monocular=cfg.monocular,
+                kf_capacity=max(16, min(128, -(-len(entries) // gap) + 8)))
+        t_scan = time.perf_counter() - t0
+        self._check_finite(outs.pose, "the offline pipeline's output")
+        self.tracker.ms = ms
+
+        o = {f: getattr(outs, f).cpu().numpy() for f in outs._fields}
+        self.results = [
+            FrameResult(
+                frame_id=i,
+                timestamp=e.timestamp,
+                state="TRACKING_GOOD" if o["tracked"][i] else "LOST",
+                pose_T_cw=o["pose"][i] if o["tracked"][i] else None,
+                n_matches=int(o["n_matches"][i]),
+                n_inliers=int(o["n_inliers"][i]),
+                parallax=float(o["parallax"][i]),
+                is_keyframe=bool(o["is_keyframe"][i]),
+                n_keyframes=int(o["n_keyframes"]),
+                n_landmarks=int(o["n_landmarks"]),
+            )
+            for i, e in enumerate(entries)
+        ]
+        summary = self._write_outputs(entries, t_scan)
+        summary["scan_time_s"] = t_scan
+        summary["decode_time_s"] = self._decode_s
+        summary["scan_fps"] = len(entries) / max(t_scan, 1e-9)
+        return self._finish(summary)
+
+    # ------------------------------------------------------------------
+    def _run_host(self, entries) -> dict:
+        """Per-frame host state machine (reference-parity path)."""
+        cfg = self.cfg
+        dev = self.device
+        jsonl = (JsonlWriter(os.path.join(cfg.output_dir, "frames.jsonl"))
+                 if cfg.metrics_jsonl else None)
+        t_start = time.perf_counter()
+        try:
+            for fid, (e, (gray, depth)) in enumerate(
+                    zip(entries, self._frames(entries))):
+                with self._stage("extract"):
+                    px, resp, desc, valid = self.extractor.extract(gray)
+                d = sample_depth_at(px, valid, depth)
+                obs = FrameObs(*(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                                 for x in (px, resp, desc, valid, d)))
+                with self._stage("track"):
+                    res = self.tracker.process(fid, e.timestamp, gray, obs)
+                if cfg.debug_nans and res.pose_T_cw is not None and not np.isfinite(
+                        res.pose_T_cw).all():
+                    raise FloatingPointError(f"non-finite pose in frame {fid}")
+                self.results.append(res)
+                if jsonl:
+                    jsonl.write(_frame_record(res))
+        finally:
+            if jsonl:
+                jsonl.close()
+        wall = time.perf_counter() - t_start
+
+        summary = self._write_outputs(entries, wall)
+        summary["decode_time_s"] = self._decode_s
+        summary["host_reads_per_frame"] = (
+            self.tracker.host_reads / max(len(self.results), 1))
+        log.info("host path: %.2f device reads per frame",
+                 summary["host_reads_per_frame"])
+        return self._finish(summary)
+
+    # ------------------------------------------------------------------
+    def _run_scan(self, entries) -> dict:
+        """The online scan, streamed: frames are decoded into chunks (by
+        the native prefetcher's threads while the scan of the previous chunk
+        runs, where the native loader is there) and each chunk is uploaded
+        and scanned as it fills; the whole sequence is never held. Frame
+        results are rebuilt from the stacked outputs, so the reporting is
+        that of the host path."""
+        cfg = self.cfg
+        scan = ScanStream(
+            self.cam, cfg.tracking, kf_capacity=cfg.kf_capacity,
+            orb_kwargs=self._orb_kwargs, resume_from=cfg.resume_from or None,
+            harvest=cfg.run_global_ba, device=self.device)
+        self._frame0 = scan.frame0
+        if cfg.resume_from:
+            log.info("Resuming from %s at frame id %d", cfg.resume_from,
+                     scan.frame0)
+        buf_g, buf_d = [], []
+
+        def flush():
+            if not buf_g:
+                return
+            with self._stage("upload"):
+                g = torch.from_numpy(np.stack(buf_g)).to(self.device)
+                d = torch.from_numpy(np.stack(buf_d)).to(self.device)
+            buf_g.clear()
+            buf_d.clear()
+            with self._stage("scan_dispatch"):
+                out = scan.feed(g, d)
+            self._check_finite(out.pose, f"the chunk ending at frame "
+                                         f"{scan.next_frame - 1}")
+
+        t0 = time.perf_counter()
+        # the prefetcher may run a whole chunk ahead of the scan
+        frames = iter(self._frames(entries, queue_depth=scan.chunk))
+        while True:
+            with self.timer.stage("decode_wait"):
+                frame = next(frames, None)
+            if frame is None:
+                break
+            buf_g.append(frame[0])
+            buf_d.append(frame[1])
+            if len(buf_g) == scan.chunk:
+                flush()
+        flush()
+        if scan.state is None:
+            raise RuntimeError("the sequence has no frames")
+        outs = scan.outputs()
+        o = {f: getattr(outs, f).cpu().numpy() for f in outs._fields}
+        t_scan = time.perf_counter() - t0   # decode is inside this
+        self.tracker.ms = scan.state.ms     # the final map (global BA, snapshot)
+        self._archive = scan.archive
+
+        self.results = [
+            FrameResult(
+                frame_id=self._frame0 + i,
+                timestamp=e.timestamp,
+                state=_STATE_NAMES[int(o["state"][i])],
+                pose_T_cw=o["pose"][i] if o["tracked"][i] else None,
+                n_matches=int(o["n_matches"][i]),
+                n_inliers=int(o["n_inliers"][i]),
+                parallax=float(o["parallax"][i]),
+                is_keyframe=bool(o["is_keyframe"][i]),
+                n_keyframes=int(o["n_keyframes"][i]),
+                n_landmarks=int(o["n_landmarks"][i]),
+            )
+            for i, e in enumerate(entries)
+        ]
+        if cfg.metrics_jsonl:
+            self._write_frames_jsonl()
+
+        summary = self._write_outputs(entries, t_scan)
+        summary["scan_time_s"] = t_scan
+        summary["decode_time_s"] = self._decode_s
+        summary["scan_fps"] = len(entries) / max(t_scan, 1e-9)
+        summary["scan_stats"] = scan.stats()
+        return self._finish(summary)
+
+    # ------------------------------------------------------------------
+    def _frames(self, entries, queue_depth: int = 4):
+        """Yield (gray, depth_m) per entry: through the native C++ decode +
+        prefetch pipeline where its library is there or can be built (its
+        threads decode up to ``queue_depth`` frames ahead of the consumer),
+        else through the Python loader, with a warning."""
+        if self.cfg.loader == "native":
+            from ..data import native_loader
+
+            if native_loader.available():
+                self.loader_used = "native"
+                pf = native_loader.NativePrefetcher(
+                    [e.rgb_path for e in entries],
+                    [e.depth_path for e in entries],
+                    queue_depth=queue_depth, n_threads=2,
+                )
+                try:
+                    yield from pf
+                finally:
+                    pf.close()
+                    self._decode_s += pf.decode_seconds()
+                return
+            log.warning("native loader unavailable; falling back to python")
+        self.loader_used = "python"
+        for e in entries:
+            t0 = time.perf_counter()
+            frame = tum.load_rgb_gray(e.rgb_path), tum.load_depth_m(e.depth_path)
+            self._decode_s += time.perf_counter() - t0
+            yield frame
+
+    # ------------------------------------------------------------------
+    def _write_outputs(self, entries, wall: float) -> dict:
+        cfg = self.cfg
+        t_out = time.perf_counter()
+        ts, mats, gt_t, gt_T = [], [], [], []
+        for e, r in zip(entries, self.results):
+            if r.pose_T_cw is None:
+                continue
+            ts.append(r.timestamp)
+            mats.append(traj.tcw_to_twc(r.pose_T_cw))
+            gt_t.append(e.gt_t)
+            gt_T.append(_gt_mat(e))
+        traj_path = os.path.join(cfg.output_dir, "trajectory.txt")
+        traj.write_tum_trajectory(traj_path, ts, mats)
+
+        ms = self.tracker.ms
+        summary = {
+            "sequence": cfg.sequence,
+            "n_frames": len(self.results),
+            "n_tracked": len(mats),
+            "n_keyframes": int(msl.n_keyframes(ms)),
+            "n_landmarks": int(msl.n_landmarks(ms)),
+            "wall_time_s": wall,
+            "fps": len(self.results) / max(wall, 1e-9),
+            "trajectory": traj_path,
+            "device": str(self.device),
+            "loader": self.loader_used,
+        }
+        if len(mats) >= 3:
+            est_t = np.asarray([m[:3, 3] for m in mats])
+            summary["ate_rmse"] = traj.ate_rmse(est_t, np.asarray(gt_t))
+            rpe_t, rpe_r = traj.rpe_rmse(np.asarray(mats), np.stack(gt_T))
+            summary["rpe_trans_rmse"] = rpe_t
+            summary["rpe_rot_rmse"] = rpe_r
+
+        if cfg.run_global_ba:
+            with self._stage("global_ba"):
+                summary["global_ba"] = self._run_global_ba()
+
+        if cfg.dump_overlays > 0:
+            from ..eval.overlay import dump_run_overlays
+
+            paths = dump_run_overlays(
+                self, entries, cfg.dump_overlays,
+                os.path.join(cfg.output_dir, "overlays"),
+            )
+            summary["overlays"] = len(paths)
+
+        snap_path = os.path.join(cfg.output_dir, "map_snapshot.npz")
+        self.save_snapshot(snap_path)
+        if cfg.export_ply:
+            from ..eval.export import export_snapshot_ply
+
+            ply_path = os.path.join(cfg.output_dir, "map.ply")
+            summary["map_ply_points"] = export_snapshot_ply(snap_path, ply_path)
+            summary["map_ply"] = ply_path
+        # writing the files, without the solve
+        self.timer.totals["outputs"] = (time.perf_counter() - t_out
+                                        - self.timer.totals.get("global_ba", 0.0))
+        self.timer.counts["outputs"] = 1
+        log.info("Summary: %s", summary)
+        return summary
+
+    # ------------------------------------------------------------------
+    def _run_global_ba(self) -> dict:
+        """Full-map Schur-complement BA (``run_global_ba``): refines the map
+        in place of the tracker's and dumps the refined keyframe
+        trajectory. Where the scan archived keyframes that the ring has
+        evicted, the solve covers every keyframe ever made."""
+        ms2, gba = run_global_ba(
+            self.tracker.ms, self.cam, self.cfg.tracking, self._archive,
+            self.cfg.global_ba_iterations, self.device)
+        self.tracker.ms = ms2
+        ts_by_id = {r.frame_id: r.timestamp for r in self.results}
+        ids, poses = gba.pop("keyframe_ids"), gba.pop("keyframe_poses")
+        path = os.path.join(self.cfg.output_dir, "trajectory_keyframes_gba.txt")
+        traj.write_tum_trajectory(
+            path, [ts_by_id.get(fid, float(fid)) for fid in ids],
+            [traj.tcw_to_twc(T) for T in poses])
+        return {"iterations": gba.pop("iterations"),
+                "final_cost": gba.pop("final_cost"),
+                "total_obs": gba.pop("total_obs"),
+                "keyframe_trajectory": path, **gba}
+
+    # ------------------------------------------------------------------
+    def save_snapshot(self, path: str) -> None:
+        """Map-state checkpoint of the run (see ``save_snapshot``)."""
+        save_snapshot(path, self.tracker.ms, self._frame0 + len(self.results))
+
+    @staticmethod
+    def load_snapshot(path: str, device="cuda") -> MapState:
+        return load_snapshot(path, device)
+
+    @staticmethod
+    def load_snapshot_full(path: str, device="cuda") -> tuple[MapState, dict]:
+        """Returns (MapState on ``device``, meta dict) from a snapshot npz."""
+        return load_snapshot_full(path, device)
+
+
+def _frame_record(r: FrameResult) -> dict:
+    rec = asdict(r)
+    rec["pose_T_cw"] = (None if r.pose_T_cw is None
+                        else np.asarray(r.pose_T_cw).tolist())
+    return rec
+
+
+def _gt_mat(e) -> np.ndarray:
+    T = np.eye(4)
+    T[:3, :3] = quat_xyzw_to_matrix(e.gt_q)
+    T[:3, 3] = e.gt_t
+    return T

@@ -338,6 +338,7 @@ def build_offline_pipeline(
     mono_link_strides: tuple[int, ...] = (1, 2),
     mono_loop_pairs: int = 0,
     lanes: int = 1,
+    orb_kwargs: dict | None = None,
 ):
     """Returns run(cam, images [T,H,W] u8, depths [T,H,W] f32, timings=None)
     -> (MapState, OfflineOut), on the device of the inputs; its stages are
@@ -352,6 +353,8 @@ def build_offline_pipeline(
     steps, two-tier width, PROSAC bias exp(-distance / bias)), the link
     strides of the map, and the re-track against the following keyframe
     too. Loop closure (``mono_loop_pairs`` > 0) is not ported.
+    ``orb_kwargs``: options of ``orb_extract`` (``n_features``,
+    ``resize_f32``, ...).
 
     ``lanes=B``: the input is B lanes of T/B frames concatenated (module
     docstring); ``kf_capacity`` is per lane and the landmark table holds
@@ -363,6 +366,7 @@ def build_offline_pipeline(
     B = lanes
     N = n_features_cap
     K = kf_capacity                     # per lane
+    orb_kw = dict(orb_kwargs or {})     # e.g. n_features, resize_f32
     KT = B * K                          # keyframe slots of the folded map
     L = B * K * N  # the allocator's worst case: no landmark is ever dropped
 
@@ -394,7 +398,7 @@ def build_offline_pipeline(
         feats = []
         for i in range(0, T, extract_chunk):
             px_c, _, desc_c, valid_c = orb_extract(
-                images[i:i + extract_chunk], n_slots=N)
+                images[i:i + extract_chunk], n_slots=N, **orb_kw)
             dfeat_c = (None if monocular else stages.sample_depth_image(
                 depths[i:i + extract_chunk], px_c, valid_c))
             feats.append((px_c, desc_c, valid_c, dfeat_c))

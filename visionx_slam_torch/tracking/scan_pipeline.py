@@ -194,11 +194,77 @@ def _empty_kf_cache(n: int, device) -> dict:
     )
 
 
-def frame_generator(frame_id: int, stream: int, device) -> torch.Generator:
+def frame_generator(frame_id: int, stream: int, device,
+                    seed: int = 17) -> torch.Generator:
     """The generator of one frame's RANSAC stream (0: PnP, 1: essential)."""
     g = torch.Generator(device=device)
-    g.manual_seed((17 << 40) + 2 * int(frame_id) + stream)
+    g.manual_seed((seed << 40) + 2 * int(frame_id) + stream)
     return g
+
+
+def tracking_ba_options(opts: TrackingOptions) -> BAOptions:
+    """Local BA's options from the tracking options; the loop stops at
+    convergence (a single stream pays one read per iteration for it)."""
+    return BAOptions(
+        window_size=opts.ba_window_size,
+        max_iterations=opts.ba_iterations,
+        min_pose_observations=opts.ba_min_pose_observations,
+        min_point_observations=opts.ba_min_point_observations,
+        huber_delta=opts.ba_huber_delta,
+        max_reproj_error=opts.ba_max_reproj_error,
+        rel_tol=opts.ba_rel_tol,
+        early_exit=True,
+    )
+
+
+def insert_init_pair(ms: MapState, cam: CameraParams, opts: TrackingOptions,
+                     obs1: FrameObs, frame_id1: int, obs2: FrameObs,
+                     frame_id2: int, pose2: Pose, cursor: int,
+                     res: matching.MatchResult | None = None):
+    """The map of a finished two-frame initialization: both frames become
+    keyframes (the first at the identity) in the ring slots after
+    ``cursor``, their depth landmarks, then the triangulated ones (``res``:
+    the raw knn2 match of the two frames, when the caller has it). Returns
+    (map, slot1, slot2)."""
+    dev = obs1.px.device
+    K, N = ms.kf_capacity, ms.n_features
+    free = torch.full((N,), FREE, dtype=torch.int32, device=dev)
+    ident = identity_pose(device=dev)
+    ms, slot1 = msl.insert_keyframe(
+        ms, frame_id1, ident, obs1.px, obs1.desc, obs1.valid, free,
+        obs1.depth, fresh_links=True, slot=cursor % K)
+    ms, slot2 = msl.insert_keyframe(
+        ms, frame_id2, pose2, obs2.px, obs2.desc, obs2.valid, free,
+        obs2.depth, fresh_links=True, slot=(cursor + 1) % K)
+    ms = stages.depth_landmarks(ms, cam, slot1, ident)
+    ms = stages.depth_landmarks(ms, cam, slot2, pose2)
+    ms = stages.triangulate_pair(
+        ms, cam, slot1, slot2, opts.triangulation_min_angle_deg,
+        opts.triangulation_max_reproj_error, res=res)
+    return ms, slot1, slot2
+
+
+def insert_tracked_keyframe(ms: MapState, cam: CameraParams,
+                            opts: TrackingOptions, obs: FrameObs,
+                            frame_id: int, pose: Pose, prev_slot: int,
+                            slot: int, links: torch.Tensor | None = None,
+                            res: matching.MatchResult | None = None):
+    """A tracked frame becomes the keyframe of ring slot ``slot``: its
+    features (``links``: the landmarks they inherit, none by default), its
+    depth landmarks, and the landmarks triangulated against the previous
+    keyframe ``prev_slot`` (``res``: their raw knn2 match, when the caller
+    has it). Returns the map."""
+    fresh = links is None
+    if fresh:
+        links = torch.full((ms.n_features,), FREE, dtype=torch.int32,
+                           device=obs.px.device)
+    ms, slot = msl.insert_keyframe(
+        ms, frame_id, pose, obs.px, obs.desc, obs.valid, links, obs.depth,
+        fresh_links=fresh, slot=slot)
+    ms = stages.depth_landmarks(ms, cam, slot, pose)
+    return stages.triangulate_pair(
+        ms, cam, prev_slot, slot, opts.triangulation_min_angle_deg,
+        opts.triangulation_max_reproj_error, res=res)
 
 
 def _frame_obs(obs: FrameObs, i: int) -> FrameObs:
@@ -233,16 +299,7 @@ def build_scan_step(
     K = kf_capacity
     ctr = counters if counters is not None else ScanCounters()
     thr = opts.max_reproj_error
-    ba_opts = BAOptions(
-        window_size=opts.ba_window_size,
-        max_iterations=opts.ba_iterations,
-        min_pose_observations=opts.ba_min_pose_observations,
-        min_point_observations=opts.ba_min_point_observations,
-        huber_delta=opts.ba_huber_delta,
-        max_reproj_error=opts.ba_max_reproj_error,
-        rel_tol=opts.ba_rel_tol,
-        early_exit=True,     # single stream: stop at convergence
-    )
+    ba_opts = tracking_ba_options(opts)
 
     def mat_pose(R, t):
         return Pose(matrix_to_quat(R), t)
@@ -374,20 +431,10 @@ def build_scan_step(
         ok = (n_matches >= opts.min_matches and (pnp_ok or ess_ok)
               and parallax >= DEG1_RAD)
         if ok:
-            ms, cursor = st.ms, st.kf_cursor
-            free = torch.full((N,), FREE, dtype=torch.int32, device=dev)
-            ident = identity_pose(device=dev)
-            ms, slot1 = msl.insert_keyframe(
-                ms, st.init_frame_id, ident, io.px, io.desc, io.valid, free,
-                io.depth, fresh_links=True, slot=cursor % K)
-            ms, slot2 = msl.insert_keyframe(
-                ms, frame_id, pose2, obs.px, obs.desc, obs.valid, free,
-                obs.depth, fresh_links=True, slot=(cursor + 1) % K)
-            ms = stages.depth_landmarks(ms, cam, slot1, ident)
-            ms = stages.depth_landmarks(ms, cam, slot2, pose2)
-            ms = stages.triangulate_pair(
-                ms, cam, slot1, slot2, opts.triangulation_min_angle_deg,
-                opts.triangulation_max_reproj_error, res=m_raw)
+            cursor = st.kf_cursor
+            ms, slot1, slot2 = insert_init_pair(
+                st.ms, cam, opts, io, st.init_frame_id, obs, frame_id, pose2,
+                cursor, m_raw)
             st = st._replace(
                 ms=ms, init_kf_slot=slot1, last_kf_slot=slot2,
                 last_kf_id=frame_id, cur_pose=pose2, last_obs=obs,
@@ -426,15 +473,10 @@ def build_scan_step(
             links = torch.full((N,), FREE, dtype=torch.long, device=dev).scatter_reduce(
                 0, idx, torch.where(good, lmc, FREE), "amax").to(torch.int32)
         else:
-            links = torch.full((N,), FREE, dtype=torch.int32, device=dev)
-        ms, slot = msl.insert_keyframe(
-            ms, frame_id, st.cur_pose, obs.px, obs.desc, obs.valid, links,
-            obs.depth, fresh_links=not opts.link_tracked_landmarks,
-            slot=st.kf_cursor % K)
-        ms = stages.depth_landmarks(ms, cam, slot, st.cur_pose)
-        ms = stages.triangulate_pair(
-            ms, cam, prev_slot, slot, opts.triangulation_min_angle_deg,
-            opts.triangulation_max_reproj_error, res=kf_match)
+            links = None
+        slot = st.kf_cursor % K
+        ms = insert_tracked_keyframe(ms, cam, opts, obs, frame_id, st.cur_pose,
+                                     prev_slot, slot, links, kf_match)
         if opts.enable_culling:
             ms, n_culled = stages.cull_landmarks(
                 ms, cam, opts.landmark_max_reproj_error,

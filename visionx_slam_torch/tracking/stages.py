@@ -67,6 +67,20 @@ def parallax_px(px_a: torch.Tensor, px_b: torch.Tensor,
     return torch.where(cnt > 0, tot / cnt.clamp(min=1), 0.0)
 
 
+def pnp_correspondences(ms: MapState, kf_slot: int, obs: FrameObs,
+                        res: MatchResult):
+    """3D-2D pairs from the landmark-bearing features of keyframe
+    ``kf_slot`` (tracking.cpp:364-407). Row i is keyframe feature i (the
+    match query): (pts3d [N,3], pts2d [N,2] current-frame pixels, valid
+    [N]: matched, has a live landmark, finite, |p| <= 1000)."""
+    feat_lm = ms.kf_feat_lm[kf_slot]
+    lm = feat_lm.clamp(0, ms.lm_physical - 1).long()
+    p = ms.lm_pos[:, lm].T
+    valid = (res.valid & (feat_lm >= 0) & ms.lm_alive[lm]
+             & torch.isfinite(p).all(-1) & (p.abs() <= 1000.0).all(-1))
+    return p, obs.px[res.idx], valid
+
+
 def depth_landmarks(ms: MapState, cam: CameraParams, kf_slot: int,
                     pose: Pose) -> MapState:
     """Every valid feature of keyframe ``kf_slot`` without a landmark and
@@ -233,12 +247,15 @@ def cull_keyframes_device(
     kf_redundant_ratio: float,
     landmark_max_reproj_error: float,
     min_landmark_observations: int,
+    min_landmarks_for_culling: int = 0,
 ):
     """CullKeyFrames (tracking.cpp:775-840): remove at most one redundant
     keyframe, the first in ascending frame id that is neither the last
     keyframe, the init keyframe nor the current frame, then cull landmarks
-    again. The decision is a host branch: one device read of (do_cull,
-    slot). Returns (state, removed slot or -1, landmarks culled [] int32)."""
+    again (only on a map of at least ``min_landmarks_for_culling``
+    landmarks, where that is given: the host tracker's rule). The decision
+    is a host branch: one device read of (do_cull, slot). Returns (state,
+    removed slot or -1, landmarks culled [] int32)."""
     K = ms.kf_capacity
     dev = ms.kf_q.device
     n_kf = msl.n_keyframes(ms)
@@ -254,6 +271,8 @@ def cull_keyframes_device(
     if not do_cull:
         return ms, -1, torch.zeros((), dtype=torch.int32, device=dev)
     ms = msl.remove_keyframe_slot(ms, slot)
+    gate = (msl.n_landmarks(ms) >= min_landmarks_for_culling
+            if min_landmarks_for_culling > 0 else None)
     ms, n_culled = cull_landmarks(ms, cam, landmark_max_reproj_error,
-                                  min_landmark_observations)
+                                  min_landmark_observations, gate=gate)
     return ms, slot, n_culled

@@ -1,11 +1,23 @@
-"""Tracking options (a copy of ``visionx_slam_tpu/utils/config.py``'s
-``TrackingOptions``: same fields, same defaults; names match the reference
-flags 1:1). The port reads only the fields its RGB-D offline path uses; the
-rest are kept so the two dataclasses stay interchangeable."""
+"""Configuration (a copy of ``visionx_slam_tpu/utils/config.py``: the same
+fields, defaults and order, so the flag surface generated from them is the
+same, plus the port's ``SystemConfig.device``), with the reference's
+config-file overlay rules (apps/main.cpp:61-103):
+
+- config files are ``key=value`` lines, ``#`` starts a comment, whitespace
+  is trimmed;
+- a config value is applied only where the command line left the flag at
+  its default ("CLI wins");
+- unknown keys produce a warning, not an error.
+"""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+import logging
+from dataclasses import dataclass, field, fields
+from typing import Any
+
+log = logging.getLogger("vxs.config")
 
 
 @dataclass
@@ -108,3 +120,150 @@ class TrackingOptions:
     # track against (measured: a 25-inlier pair yielding ONE landmark).
     # 0 = strict reference behavior (no viability gate).
     min_init_landmarks: int = 0
+
+
+@dataclass
+class SystemConfig:
+    """Full runner config = dataset/runner flags + TrackingOptions.
+
+    Runner flag names match apps/main.cpp:15-19. ``viewer_*`` flags are
+    accepted for CLI compatibility but map to the trajectory-dump viewer
+    replacement (SURVEY.md L8): there is no GL window.
+    """
+
+    config: str = ""
+    dataset_dir: str = "../dataset/tum_rgbd"
+    sequence: str = "rgbd_dataset_freiburg1_desk"
+    viewer_thread: bool = False
+    viewer_loop_ms: int = 10
+
+    # --- new-framework extensions (not in the reference) ---
+    output_dir: str = "output"          # trajectory + metrics destination
+    max_frames: int = -1                # -1 = whole sequence
+    # "jax" names the on-device ORB, as in the JAX package and its config
+    # files ("torch" is accepted as the same thing); "opencv" is the host oracle
+    extractor: str = "jax"
+    loader: str = "native"              # "native" (C++ prefetch pipeline) | "python"
+    run_global_ba: bool = False         # full-map Schur BA after the sequence
+    global_ba_iterations: int = 10
+    # resume a run from a map snapshot (map_snapshot.npz); the restored map
+    # becomes the initial state and tracking continues in TRACKING_GOOD
+    # against its newest keyframe (SURVEY.md §5.4 mandated addition)
+    resume_from: str = ""
+    # "scan": the online per-frame tracker over pre-extracted chunks (fast
+    #         path, reference state-machine semantics);
+    # "offline": batched frame-parallel mapping (highest throughput; RGB-D
+    #         by default, set `monocular` for the essential + scale-chain
+    #         variant — see tracking/offline_pipeline.py);
+    # "host": per-frame host state machine (reference-parity/debug path)
+    pipeline: str = "host"
+    # monocular offline mode (BASELINE config 2 on the fast path): depth
+    # input is ignored; poses/landmarks live in the VO scale frame
+    monocular: bool = False
+    # observability (SURVEY.md §5.1/§5.2): a torch.profiler trace of the run
+    # is written into profile_dir; debug_nans raises on the first chunk (or
+    # frame) whose poses are not finite
+    profile_dir: str = ""
+    debug_nans: bool = False
+    n_features: int = 1000              # reference: orb_extractor.h:11
+    # build the ORB pyramid (resize/pack) in f32 instead of bf16 — the
+    # pre-optimization numeric path, pinned by the strict fidelity config
+    # (its 5% ATE band is sensitive to resize rounding; the default bf16
+    # build is validated statistically and on the default-config ATE)
+    orb_resize_f32: bool = False
+    metrics_jsonl: bool = True          # per-frame structured metrics
+    kf_capacity: int = 64               # keyframe ring slots (scan path)
+    # viewer-replacement sinks (SURVEY.md L8): landmark cloud + keyframe
+    # centers as PLY next to the npz snapshot; plot via cli.plot
+    export_ply: bool = True
+    # dump the viewer's per-frame feature-overlay image (viewer.cpp:106-141)
+    # for every Nth frame of the run into output_dir/overlays/ (0 = off) —
+    # the run-level debugging artifact the live GL panel provided
+    dump_overlays: int = 0
+    # the port's one added field: where the tensors live. "cuda" raises
+    # where no card is there; the tests ask for "cpu"
+    device: str = "cuda"
+
+    tracking: TrackingOptions = field(default_factory=TrackingOptions)
+
+
+_BOOL_TRUE = {"true", "1", "yes", "on"}
+_BOOL_FALSE = {"false", "0", "no", "off"}
+
+
+def _coerce(value: str, typ: type) -> Any:
+    if typ is bool:
+        v = value.strip().lower()
+        if v in _BOOL_TRUE:
+            return True
+        if v in _BOOL_FALSE:
+            return False
+        raise ValueError(f"not a boolean: {value!r}")
+    return typ(value)
+
+
+def parse_config_file(path: str) -> dict[str, str]:
+    """Parse a ``key=value`` config file (reference: apps/main.cpp:61-90)."""
+    kv: dict[str, str] = {}
+    try:
+        with open(path, "r") as fin:
+            for line in fin:
+                hash_pos = line.find("#")
+                if hash_pos != -1:
+                    line = line[:hash_pos]
+                line = line.strip()
+                if not line:
+                    continue
+                eq = line.find("=")
+                if eq == -1:
+                    continue
+                key = line[:eq].strip()
+                value = line[eq + 1 :].strip()
+                if key:
+                    kv[key] = value
+    except OSError:
+        log.warning("Failed to open config file: %s", path)
+    return kv
+
+
+def _flat_field_map(cfg: SystemConfig) -> dict[str, tuple[Any, str, type]]:
+    """Map flag-name -> (owner object, attr, type) over SystemConfig+TrackingOptions."""
+    out: dict[str, tuple[Any, str, type]] = {}
+    for f in fields(cfg):
+        if f.name == "tracking":
+            continue
+        out[f.name] = (cfg, f.name, f.type if isinstance(f.type, type) else type(getattr(cfg, f.name)))
+    for f in fields(cfg.tracking):
+        out[f.name] = (cfg.tracking, f.name, type(getattr(cfg.tracking, f.name)))
+    return out
+
+
+def apply_config_if_default(
+    cfg: SystemConfig, kv: dict[str, str], cli_set: set[str]
+) -> SystemConfig:
+    """Overlay config-file values onto ``cfg`` where the CLI left the default.
+
+    ``cli_set`` holds flag names the user explicitly passed on the command
+    line; those win over the config file (reference: apps/main.cpp:92-103).
+    Unknown keys warn (apps/main.cpp:96).
+    """
+    fmap = _flat_field_map(cfg)
+    for key, value in kv.items():
+        if key not in fmap:
+            log.warning("Unknown config key: %s", key)
+            continue
+        if key in cli_set:
+            continue  # CLI wins
+        owner, attr, typ = fmap[key]
+        try:
+            setattr(owner, attr, _coerce(value, type(getattr(owner, attr))))
+        except ValueError as e:
+            log.warning("Bad value for %s: %s", key, e)
+    return cfg
+
+
+def config_to_dict(cfg: SystemConfig) -> dict[str, Any]:
+    d = dataclasses.asdict(cfg)
+    tr = d.pop("tracking")
+    d.update(tr)
+    return d

@@ -3,8 +3,9 @@ pipeline, at the shape of tests/test_offline_pipeline.py's
 ``test_offline_batched_matches_single``: 16 frames of 640x480 (seed 7),
 lanes = the sequence and its reverse, ``kf_capacity`` 16, two GBA passes.
 
-- Lane isolation: the port's folded lane 0 equals a single port run of the
-  same frames (poses within 1e-5, tracked and keyframe count equal; on the
+- Lane isolation: the port's folded lane 0 (run through
+  ``parallel.batch.sharded_offline_pipeline`` on a world of one) equals a
+  single port run of the same frames (poses within 1e-5, tracked and keyframe count equal; on the
   CPU they are bit-equal), in RGB-D and in mono.
 - Against the JAX package's folded run (its ``pre``/``refine``/``post``
   stages with ``lanes=2``), per lane, the band of tests/test_torch_offline.py:
@@ -29,6 +30,7 @@ from visionx_slam_tpu.utils.config import TrackingOptions as JOpts
 from visionx_slam_torch import convert
 from visionx_slam_torch.eval.trajectory import ate_of_run
 from visionx_slam_torch.ops import se3 as tse3
+from visionx_slam_torch.parallel import batch as TB
 from visionx_slam_torch.tracking import offline_pipeline as TOP
 from visionx_slam_torch.utils.config import TrackingOptions
 
@@ -64,14 +66,16 @@ def port_runs():
     _, tc = cameras()
     opts = TrackingOptions()
     timings = {}
-    ms_b, ob = TOP.run_offline_pipeline_batched(tc, g2, d2, opts, device="cpu",
-                                                timings=timings, **KW)
+    # the folded lanes through the multi-device wrapper on a world of one:
+    # run_offline_pipeline_batched on every lane, plus the fleet totals
+    ms_b, ob, fleet = TB.sharded_offline_pipeline(
+        TB.make_mesh(device="cpu"), tc, opts, timings=timings, **KW)(g2, d2)
     ms_1, o1 = TOP.run_offline_pipeline(tc, g2[0], d2[0], opts, device="cpu", **KW)
-    return ms_b, ob, ms_1, o1, gt2, timings
+    return ms_b, ob, ms_1, o1, gt2, timings, fleet
 
 
 def test_folded_lane_equals_single_run(port_runs):
-    ms_b, ob, ms_1, o1, _, timings = port_runs
+    ms_b, ob, ms_1, o1, _, timings, _ = port_runs
     assert ob.pose.shape == (2, 16, 4, 4)
     np.testing.assert_allclose(to_np(ob.pose[0]), to_np(o1.pose), rtol=0, atol=1e-5)
     assert torch.equal(ob.tracked[0], o1.tracked)
@@ -86,7 +90,7 @@ def test_folded_lane_equals_single_run(port_runs):
 
 def test_folded_lanes_match_jax_band(jax_folded, port_runs):
     _, _, oj = jax_folded
-    _, ob, _, _, gt2, _ = port_runs
+    _, ob, _, _, gt2, _, _ = port_runs
     T = 16
     for b in range(2):
         sl = slice(b * T, (b + 1) * T)
@@ -101,6 +105,26 @@ def test_folded_lanes_match_jax_band(jax_folded, port_runs):
         n_j, n_t = int(np.asarray(oj.n_landmarks)[b]), int(ob.n_landmarks[b])
         assert abs(n_t - n_j) <= 0.1 * n_j, (b, n_j, n_t)
         assert int(ob.n_keyframes[b]) == int(kf_t.sum())
+
+
+def test_sharded_fleet_totals_match_jax(jax_folded, port_runs):
+    """The fleet totals of ``parallel.batch.sharded_offline_pipeline`` on a
+    world of one (the fixture's folded run) are the lanes' sums, and equal
+    the JAX package's folded run (the body of its
+    ``sharded_offline_pipeline`` on a mesh of one, ``run.batched_lanes``):
+    tracked frames, keyframe flags, keyframes and landmarks; the poses lie
+    in the band above."""
+    _, ob, _, _, _, _, fleet = port_runs
+    _, _, oj = jax_folded
+    assert fleet["lane_offset"] == 0
+    assert int(fleet["total_tracked"]) == int(ob.tracked.sum()) == int(
+        np.asarray(oj.tracked).sum()) == 32
+    np.testing.assert_array_equal(to_np(ob.is_keyframe).reshape(-1),
+                                  np.asarray(oj.is_keyframe))
+    assert int(fleet["total_keyframes"]) == int(ob.n_keyframes.sum()) == int(
+        np.asarray(oj.n_keyframes).sum())
+    assert int(fleet["total_landmarks"]) == int(ob.n_landmarks.sum()) == int(
+        np.asarray(oj.n_landmarks).sum())
 
 
 def test_keyframe_policy_with_lane_starts_matches_jax(jax_folded):

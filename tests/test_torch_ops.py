@@ -1,14 +1,18 @@
 """se3, camera and linalg of the port against the JAX package on random
-float32 batches (atol 1e-5)."""
+float32 batches (atol 1e-5); the deterministic segment sum of the solvers
+against ``index_add_`` on the CPU, bit for bit, and against
+``jax.ops.segment_sum`` (the JAX package's sorted sums) within 1e-5."""
 
 import numpy as np
 import pytest
+import torch
 
 from visionx_slam_tpu.ops import camera as jcam
 from visionx_slam_tpu.ops import linalg as jla
 from visionx_slam_tpu.ops import se3 as jse3
 
 from visionx_slam_torch.ops import camera as tcam
+from visionx_slam_torch.ops.index import segment_sum, segments
 from visionx_slam_torch.ops import linalg as tla
 from visionx_slam_torch.ops import se3 as tse3
 
@@ -193,3 +197,31 @@ def test_linalg(rng):
     _close(tla.chol_solve6x6(t(H), t(b)), jla.chol_solve6x6(H, b), atol=1e-4)
     x = np.asarray(jla.chol_solve6x6(H, b))
     np.testing.assert_allclose(np.einsum("bij,bj->bi", H, x), b, atol=1e-3)
+
+
+@pytest.mark.parametrize("cols", [(), (12,), (3, 3)])
+def test_segment_sum_equals_index_add(rng, cols):
+    """Random rows into 500 segments (about a third empty), some rows to
+    the spare id 500: with the spare as one more segment the sum equals
+    ``index_add_`` into 501 rows bit for bit, without it its first 500;
+    integers too; an empty segment sums to 0."""
+    import jax
+
+    R, L = 4000, 500
+    ids = rng.integers(0, 350, R) * 10 // 7          # gaps: empty segments
+    ids[rng.random(R) < 0.2] = L                      # the spare row
+    x = _rand(rng, R, *cols, scale=100.0)
+    ref = torch.zeros((L + 1, *cols)).index_add_(0, t(ids), t(x))
+    assert torch.equal(segment_sum(t(x), segments(t(ids), L + 1)), ref)
+    segs = segments(t(ids), L)
+    out = segment_sum(t(x), segs)
+    assert torch.equal(out, ref[:L])
+    assert int((segs.lengths == 0).sum()) > 100
+    assert not out[segs.lengths == 0].any()
+    jx = jax.ops.segment_sum(x, ids, num_segments=L + 1)[:L]
+    np.testing.assert_allclose(to_np(out), np.asarray(jx), rtol=1e-5, atol=1e-3)
+    n = t(rng.integers(-3, 4, (R, *cols)).astype(np.int32))
+    ref_n = torch.zeros((L, *cols), dtype=torch.int32).index_add_(
+        0, t(np.minimum(ids, L - 1)), torch.where(
+            t(ids < L).reshape(-1, *[1] * len(cols)), n, 0))
+    assert torch.equal(segment_sum(n, segs), ref_n)

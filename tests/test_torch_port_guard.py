@@ -2,8 +2,9 @@
 ``visionx_slam_tpu`` (the GPU host has no jax and no cv2) — every module,
 and the offline pipeline (one lane, folded lanes, monocular), the online
 scan (plain, with culling, batched, archived with the full-map global BA,
-resumed from a snapshot), ``pair_ba`` and the ``System`` class on a
-sequence it wrote to disk (``scan``, ``offline`` and ``host``) run end to
+resumed from a snapshot), ``pair_ba``, the ``System`` class on a
+sequence it wrote to disk (``scan``, ``offline`` and ``host``), the
+multi-device step on a world of one and ``entry``'s forward run end to
 end — and its in-memory sequence is bit-for-bit the one the bench loads
 from PNGs."""
 
@@ -96,6 +97,18 @@ with tempfile.TemporaryDirectory() as tmp:
         summary = system.System(cfg).run()
         assert summary["n_tracked"] == 4 and summary["ate_rmse"] < 0.02, summary
         assert os.path.isfile(os.path.join(tmp, pipeline, "map.ply"))
+from visionx_slam_torch import entry
+from visionx_slam_torch.models.local_ba import BAOptions
+from visionx_slam_torch.parallel import batch as pb
+mesh = pb.make_mesh(device="cpu")
+cam_s = make_camera(100.0, 100.0, 32.0, 24.0)
+mss, obss, fids, gens, _ = pb.make_correlated_fleet(cam_s, 2, 64, device="cpu")
+_, poses, fleet = pb.batched_slam_step(mesh, cam_s, n_hypotheses=16,
+                                       ba_opts=BAOptions(max_iterations=2))(
+    mss, obss, fids, gens)
+assert poses.shape == (2, 4, 4) and int(fleet["total_inliers"]) >= 64, fleet
+fn, ex = entry.entry("cpu")
+assert int(fn(*ex)[2]) > 0
 from visionx_slam_torch.models.orb import OpenCVExtractor
 try:
     OpenCVExtractor()

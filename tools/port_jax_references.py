@@ -28,10 +28,19 @@ constants).
   ``extractor=jax`` over its first ``--host_frames`` frames (the normal
   entry point's default path); tracked, rigid ATE, keyframe flags, and
   the final map's keyframes and landmarks;
-  chip_smoke.py's ``HOST_*_JAX``.
+  chip_smoke.py's ``HOST_*_JAX``;
+- fleet: the multi-device module. One fused ``slam_step`` over the rendered
+  fleet of ``parallel.batch.make_rendered_fleet`` (D=8 lanes, N=1024, the
+  first 9 frames of the bench sequence written to disk), vmapped on one
+  device as ``tests/test_multichip.py`` runs it: fleet matches and inliers,
+  per lane and in total, and each lane's pose error against its
+  ground-truth motion; then the tiny dry run of ``__graft_entry__.py`` on a
+  world of one (the correlated fleet's step totals, the sharded offline
+  pipeline's tracked, keyframes, landmarks and ATE); chip_smoke.py's
+  ``FLEET_*_JAX`` and ``DRYRUN_*_JAX``.
 
 Run from the repository root:
-``JAX_PLATFORMS=cpu python3 tools/port_jax_references.py [--configs 5 2b 2 cull cull_keep host]``.
+``JAX_PLATFORMS=cpu python3 tools/port_jax_references.py [--configs 5 2b 2 cull cull_keep host fleet]``.
 Prints one JSON line per config.
 """
 
@@ -180,6 +189,71 @@ def config_host(n_frames: int) -> dict:
             "fps_cpu": s["fps"]}
 
 
+def config_fleet() -> dict:
+    import tempfile
+
+    import jax
+
+    from visionx_slam_tpu.data import tum
+    from visionx_slam_tpu.models.local_ba import BAOptions
+    from visionx_slam_tpu.ops.camera import make_camera
+    from visionx_slam_tpu.parallel import batch as pb
+    from visionx_slam_torch.data import synthetic
+
+    D = 8
+    cam = make_camera(synthetic.FX, synthetic.FY, synthetic.CX, synthetic.CY)
+    with tempfile.TemporaryDirectory() as tmp:
+        # the bench sequence's first D + 1 frames: the trajectory is a
+        # function of the frame index alone
+        synthetic.generate_sequence(tmp, n_frames=D + 1, seed=5)
+        mss, obss, fids, keys, gt_rel = pb.make_rendered_fleet(cam, tmp, D)
+    kw = dict(n_hypotheses=16, ba_opts=BAOptions(max_iterations=2))
+    vstep = jax.jit(jax.vmap(
+        lambda ms, obs, fid, key: pb.slam_step(ms, obs, fid, cam, key, **kw)))
+    _, poses, stats = vstep(mss, obss, fids, keys)
+    poses = np.asarray(poses)
+    r_err = [float(np.abs(poses[b, :3, :3] - T[:3, :3]).max())
+             for b, T in enumerate(gt_rel)]
+    t_err = [float(np.abs(poses[b, :3, 3] - T[:3, 3]).max())
+             for b, T in enumerate(gt_rel)]
+    res = {"config": "fleet", "lanes": D,
+           "matches": np.asarray(stats["matches"]).tolist(),
+           "inliers": np.asarray(stats["inliers"]).tolist(),
+           "total_matches": int(np.sum(stats["matches"])),
+           "total_inliers": int(np.sum(stats["inliers"])),
+           "rot_err_max": r_err, "t_err_m": t_err}
+
+    # the dry run of __graft_entry__.dryrun_multichip on a world of one
+    cam_s = make_camera(100.0, 100.0, 32.0, 24.0)
+    mss, obss, fids, keys, _ = pb.make_correlated_fleet(cam_s, 1, 64, seed=0)
+    step = pb.batched_slam_step(pb.make_mesh(1), cam_s, **kw)
+    _, _, fleet = step(mss, obss, fids, keys)
+    res["dryrun_inliers"] = int(fleet["total_inliers"])
+    res["dryrun_matches"] = int(fleet["total_matches"])
+    Tf = 8
+    seq = "rgbd_dataset_freiburg3_synthetic"
+    with tempfile.TemporaryDirectory() as tmp:
+        synthetic.generate_sequence(tmp, sequence=seq, n_frames=Tf, seed=11,
+                                    frames_per_loop=Tf)
+        ds = tum.TumDataset(tmp, seq)
+        ds.load()
+        g = np.stack([tum.load_rgb_gray(e.rgb_path) for e in ds.entries])[None]
+        d = np.stack([tum.load_depth_m(e.depth_path) for e in ds.entries])[None]
+        gts = np.stack([e.gt_t for e in ds.entries])
+    from visionx_slam_tpu.utils.config import TrackingOptions
+
+    f = pb.sharded_offline_pipeline(
+        pb.make_mesh(1), cam, TrackingOptions(), kf_capacity=4,
+        extract_chunk=2, pair_chunk=4, refine_iterations=1)
+    _, out, fleet_o = f(g, d)
+    tr = np.asarray(out.tracked)[0]
+    res.update(dryrun_tracked=int(fleet_o["total_tracked"]),
+               dryrun_keyframes=int(fleet_o["total_keyframes"]),
+               dryrun_landmarks=int(fleet_o["total_landmarks"]),
+               dryrun_ate_m=_ate(np.asarray(out.pose)[0], tr, gts, False))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--configs", nargs="+", default=["5", "2b", "2"])
@@ -200,6 +274,7 @@ def main() -> int:
             "2": lambda: config2(cam, opts, grays, gts),
             "cull": lambda: config_cull(cam, opts, grays, depths, gts),
             "host": lambda: config_host(args.host_frames),
+            "fleet": config_fleet,
             "cull_keep": lambda: config_cull(cam, opts, grays, depths, gts,
                                              "cull_keep", **CULL_KEEP)}
     for c in args.configs:

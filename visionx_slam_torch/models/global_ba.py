@@ -1,21 +1,21 @@
 """Global bundle adjustment: matrix-free Schur-complement Gauss-Newton with
 fixed-count PCG (counterpart of ``visionx_slam_tpu/models/global_ba.py``).
 
-- Hll is block-diagonal [L,3,3] and Hpp [K,6,6]; the landmark sums are one
-  ``index_add_`` into an L+1-row buffer whose spare row takes the
-  observations of non-optimized landmarks (the JAX package sorts them by
-  landmark once and runs sorted segment sums instead).
+- Hll is block-diagonal [L,3,3] and Hpp [K,6,6]; the landmark sums are
+  segment sums over the observations sorted by landmark once per solve
+  (``ops.index.segment_sum``, as the JAX package's sorted segment sums);
+  the observations of non-optimized landmarks belong to no segment.
 - S v = (Hpp + lambda) v - W Hll^-1 W^T v is applied as an operator inside
   PCG with a block-Jacobi (Hpp + lambda)^-1 preconditioner; the oldest
   alive keyframe is the gauge and stays fixed.
 - ``gauge_group`` labels the keyframe slots of a map merged from several
   independent lane maps: each group freezes its own oldest keyframe, and
   every scalar of the solve (CG step sizes, the finite check, cost and
-  convergence) is kept per group by ``index_add_`` over the labels, so one
+  convergence) is kept per group by a segment sum over the labels, so one
   merged solve equals the per-lane solves.
 
-On CUDA ``index_add_`` accumulates with atomics, so the landmark sums (and
-everything downstream) change order, and last bits, from run to run.
+Every float sum adds in a fixed order, so a solve on CUDA gives the same
+bits in every run.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.camera import CameraParams
+from ..ops.index import segment_sum, segments
 from ..ops.linalg import inv3x3
 from ..ops.se3 import Pose, quat_to_matrix, se3_compose, se3_exp, so3_hat
 from ..tracking import mapstate as msl
@@ -110,10 +111,13 @@ def global_ba(ms: MapState, cam: CameraParams,
     free_kf = alive_kf & ~fixed_mask
     free6 = free_kf[:, None]
 
+    if not single:
+        groups = segments(grp, K)
+
     def seg_k(x_k):   # per-keyframe [K] -> per group (a scalar when single)
         if single:
             return x_k.sum()
-        return torch.zeros(K, dtype=x_k.dtype, device=dev).index_add_(0, grp, x_k)
+        return segment_sum(x_k, groups)
 
     def to_k(v_g):    # per group -> per keyframe
         return v_g if single else v_g[grp]
@@ -127,6 +131,7 @@ def global_ba(ms: MapState, cam: CameraParams,
     kk = torch.arange(K, device=dev)[:, None].expand(K, N).reshape(-1)
     opt_obs_mask = (has_lm & lm_opt[lm_idx]).reshape(-1)
     seg = torch.where(opt_obs_mask, lm_idx.reshape(-1), L)      # spare row L
+    lm_segs = segments(seg, L)
 
     has_any_obs = seg_k((has_lm & ms.lm_alive[lm_idx]).sum(1)) > 0
     enabled = (seg_k(alive_kf.long()) >= 2) & has_any_obs
@@ -139,8 +144,7 @@ def global_ba(ms: MapState, cam: CameraParams,
         apply_lm = lambda a: a[lm_grp[:L]][None, :]
 
     def seg_sum_lm(per_obs):  # [O,d] -> [L,d]
-        buf = torch.zeros((L + 1, per_obs.shape[-1]), dtype=dt, device=dev)
-        return buf.index_add_(0, seg, per_obs)[:L]
+        return segment_sum(per_obs, lm_segs)
 
     px_obs = ms.kf_px.transpose(1, 2)                           # [K,N,2]
 

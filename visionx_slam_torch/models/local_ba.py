@@ -7,9 +7,8 @@ SE(3) retraction and a relative-cost convergence test; the JAX package's
 sign fix of the reference's Gauss-Newton update is kept. The point pass
 works on a compact bucket table of the window's landmarks: observations
 sorted by landmark once, per-iteration segment sums of 3x3 / 3x1 blocks
-(``index_add_``: on CUDA its float sums are accumulated in no fixed order,
-so results vary in their last bits from run to run), closed-form 3x3
-solves.
+(``ops.index.segment_sum``: a fixed order, so the same bits in every run on
+CUDA too), closed-form 3x3 solves.
 
 The iteration loop: with ``early_exit`` the host reads the ``done`` flag
 after every iteration and stops at convergence (one device read per
@@ -26,7 +25,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.camera import CameraParams
-from ..ops.index import stable_argsort
+from ..ops.index import segment_sum, segments, stable_argsort
 from ..ops.linalg import chol_solve6x6, solve3x3
 from ..ops.se3 import Pose, quat_to_matrix, se3_compose, se3_exp
 from ..tracking import mapstate as msl
@@ -102,6 +101,8 @@ def local_ba(ms: MapState, cam: CameraParams,
     uniq_clip = uniq_lm.clamp(0, Lp - 1)
     loc_flat = torch.empty_like(loc_sorted)
     loc_flat[seg_order] = loc_sorted
+    # the rows without a landmark (the last bucket) are summed by nobody
+    buckets = segments(torch.where(base_lm < Lp, loc_flat, S), S, seg_order)
     loc_flat = loc_flat.reshape(W, N)
 
     alive_u = ms.lm_alive[uniq_clip] & uniq_real
@@ -150,10 +151,8 @@ def local_ba(ms: MapState, cam: CameraParams,
         Jpt = _proj_jacobian(cam, pc2) @ quat_to_matrix(q2)[:, None]   # [W,N,2,3]
         Hc = Jpt.transpose(-1, -2) @ (Jpt * ww2[..., None, None])       # [W,N,3,3]
         bc = (Jpt.transpose(-1, -2) @ (err2 * ww2[..., None])[..., None])[..., 0]
-        contrib = torch.cat([Hc.reshape(-1, 9), bc.reshape(-1, 3),
-                             obs2.reshape(-1, 1).to(dt)], -1)[seg_order]
-        table = torch.zeros((S, 13), dtype=dt, device=dev).index_add_(
-            0, loc_sorted, contrib)
+        table = segment_sum(torch.cat([Hc.reshape(-1, 9), bc.reshape(-1, 3),
+                                       obs2.reshape(-1, 1).to(dt)], -1), buckets)
         dp = solve3x3(table[:, :9].reshape(S, 3, 3) + eye3, table[:, 9:12])
         apply_pt = ((table[:, 12] >= opts.min_point_observations) & lm_eligible_u
                     & ~done & enabled & torch.isfinite(dp).all(-1))

@@ -6,10 +6,11 @@ observations: the feature that created it (keyframe k, slot n) and at most
 one adopting feature of keyframe k+1 (the link pass reads the pre-adoption
 table, so adoption never chains). The observation graph is a partial
 matching between consecutive keyframes, so every landmark-axis reduction of
-the general solver (``global_ba``: an ``index_add_`` into the landmark
-table per matvec) becomes ONE gather along the feature axis of the
-neighbouring keyframe (``_push_to_creator`` / ``_pull_from_creator``): no
-sort, no scatter, no atomics, and therefore the same bits in every run.
+the general solver (``global_ba``: a segment sum over the observations
+sorted by landmark, per matvec) becomes ONE gather along the feature axis
+of the neighbouring keyframe (``_push_to_creator`` /
+``_pull_from_creator``): no sort, no scatter, and the same bits in every
+run.
 
 Same semantics as ``global_ba`` (residuals, Huber weights, reprojection
 gate, Schur-complement Gauss-Newton with block-Jacobi PCG, the oldest

@@ -15,6 +15,7 @@ from ..models import matching
 from ..models.estimation import projection_matrix, triangulate_dlt
 from ..models.matching import MatchResult
 from ..ops.camera import CameraParams, backproject, project_pinhole
+from ..ops.index import segment_sum, segments
 from ..ops.se3 import Pose, identity_pose, quat_rotate, se3_apply, se3_inverse
 from . import mapstate as msl
 from .mapstate import MapState
@@ -194,10 +195,10 @@ def cull_landmarks(ms: MapState, cam: CameraParams, max_reproj: float,
     caller's ``min_landmarks_for_culling`` test, without a host read).
     Returns (state, n_culled [] int32).
 
-    The per-landmark sums go through ``index_add_`` into a table with a
-    spare row for the unmeasurable observations; on CUDA its atomics add in
-    any order, so a landmark whose mean error sits within rounding of the
-    threshold may fall on either side from run to run."""
+    The per-landmark sums are segment sums in a fixed order (the
+    unmeasurable observations belong to no landmark), so a landmark whose
+    mean error sits within rounding of the threshold falls on the same side
+    in every run."""
     L = ms.lm_physical
     dev = ms.kf_q.device
     has = msl.kf_alive(ms)[:, None] & ms.kf_fvalid & (ms.kf_feat_lm >= 0)
@@ -208,8 +209,8 @@ def cull_landmarks(ms: MapState, cam: CameraParams, max_reproj: float,
     measurable = (has & ok).reshape(-1)       # a failed projection is skipped
     seg = torch.where(measurable, lm.reshape(-1), L)             # spare row L
     err_flat = torch.where(measurable, err.reshape(-1), 0.0)
-    table = torch.zeros((L + 1, 2), dtype=err.dtype, device=dev).index_add_(
-        0, seg, torch.stack([err_flat, measurable.to(err.dtype)], -1))
+    table = segment_sum(torch.stack([err_flat, measurable.to(err.dtype)], -1),
+                        segments(seg, L))
     err_sum, cnt = table[:L, 0], table[:L, 1]
     err_max = torch.zeros(L + 1, dtype=err.dtype, device=dev).scatter_reduce_(
         0, seg, err_flat, "amax")[:L]

@@ -10,7 +10,11 @@ triangulated landmarks, so local BA iterates), and over the sequence tiled
 five times (1200 frames: the keyframe ring wraps and the landmark table is
 compacted at full capacity); the offline pipeline over 8 folded lanes of
 120 frames (BASELINE config 5); the monocular offline pipeline over the
-sequence tiled four times at stride 4 (config 2b); the monocular scan
+sequence tiled four times at stride 4 (config 2b), and on that input with
+the monocular loop closure (the scale re-anchoring at revisits; with the
+landmark merge and the two-phase refine too, twice for equal bits; and that
+as two folded lanes, the input and its reverse, lane 0 bit for bit the
+single run); the monocular scan
 over 60 frames at stride 4 (config 2); the two global-BA solvers
 ``pair_ba`` and ``global_ba`` on the offline K=128 map (config 4), timed;
 the scan in 64-frame chunks with the keyframe archive and the full-map
@@ -265,6 +269,21 @@ MONO_OFF_ATE_JAX = 0.357560
 MONO_OFF_TRACKED_JAX = 234
 MONO_SCAN_ATE_JAX = 0.022810       # median of the 8 draws
 MONO_SCAN_TRACKED_JAX = 59.5
+# The JAX package's config 2b with the loop closure on, on the CPU
+# (tools/port_jax_references.py --configs 2b_loop 2b_merge): the scale
+# re-anchoring alone, and with the landmark merge and the two-phase refine;
+# tracked frames, ATE, the final map's keyframes and live landmarks. The
+# merge kills 8.7% of the landmarks there (4909 -> 4482): the port's share
+# is held within [1/2, 2] x that, which a run without the merge fails.
+MONO_LOOP_PAIRS = 12
+MONO_LOOP_ATE_JAX = 0.370938
+MONO_LOOP_TRACKED_JAX = 235
+MONO_LOOP_KEYFRAMES_JAX = 76
+MONO_LOOP_LANDMARKS_JAX = 4909
+MONO_MERGE_ATE_JAX = 0.371315
+MONO_MERGE_TRACKED_JAX = 235
+MONO_MERGE_KEYFRAMES_JAX = 76
+MONO_MERGE_LANDMARKS_JAX = 4482
 # the bench's mono offline budget (bench.py config 2b)
 MONO_KW = dict(mono_pair_hypotheses=64, mono_lo_starts=2,
                mono_sample_bias=64.0, mono_score_top_k=32)
@@ -378,7 +397,121 @@ def run_mono_offline(grays, gt_t) -> dict:
             "ate_m_scale_aligned": ate, "tracked": n_tracked,
             "keyframes": int(out.n_keyframes),
             "landmarks": int(out.n_landmarks), "k1_launches": launches,
-            "stage_seconds": stage_s}
+            "stage_seconds": stage_s, "_pose": out.pose}
+
+
+def _maps_equal(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in a._fields)
+
+
+def run_mono_loop(grays, gt_t, off_pose) -> dict:
+    """Config 2b's input with the monocular loop closure: (i) the scale
+    re-anchoring at revisits (``mono_loop_pairs=12``), (ii) also the
+    landmark merge and the two-phase refine (``mono_loop_merge``), (iii)
+    two folded lanes of (ii), the input and its reverse. Each a warm-up,
+    then a counted, timed run; (ii) once more (equal bits) and once under
+    CUDA's sync debug mode; the wide and the standard ``global_ba`` of
+    (ii)'s refine timed by CUDA events on the map it refines; and the
+    place descriptors of copied frames (the input repeats every 60 frames)
+    checked to tie exactly."""
+    import numpy as np
+    import torch
+
+    from visionx_slam_torch.eval.trajectory import ate_of_run
+    from visionx_slam_torch.models.global_ba import global_ba
+    from visionx_slam_torch.ops import detect
+    from visionx_slam_torch.tracking import offline_pipeline as op
+    from visionx_slam_torch.utils.config import TrackingOptions
+
+    cam, opts = _camera(), TrackingOptions()
+    g = torch.as_tensor(np.tile(grays, (4, 1, 1))[::4].copy()).cuda()
+    gt = np.tile(gt_t, (4, 1))[::4]
+    z = torch.zeros(g.shape, dtype=torch.float32, device="cuda")
+    T = g.shape[0]
+    K = op.default_lane_kf_capacity(T)
+    kw = dict(monocular=True, kf_capacity=K, mono_loop_pairs=MONO_LOOP_PAIRS,
+              **MONO_KW)
+    merge = dict(kw, mono_loop_merge=True)
+    g2 = torch.stack([g, g.flip(0)])
+    z2 = torch.zeros(g2.shape, dtype=torch.float32, device="cuda")
+    runs = {
+        "scale": lambda **a: op.run_offline_pipeline(cam, g, z, opts, device="cuda",
+                                                     **kw, **a),
+        "merge": lambda **a: op.run_offline_pipeline(cam, g, z, opts, device="cuda",
+                                                     **merge, **a),
+        "folded": lambda **a: op.run_offline_pipeline_batched(
+            cam, g2, z2, opts, device="cuda", **merge, **a)}
+    res, results = {}, {}
+    for name, fn in runs.items():
+        fn()
+        stage_s, stats = {}, {}
+        detect.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms, out = fn(timings=stage_s, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = T * (2 if name == "folded" else 1)
+        r = {"frames": n, "seconds": wall, "fps": n / wall,
+             "k1_launches": detect.launches, "stage_seconds": stage_s, **stats,
+             "keyframes": np.asarray(out.n_keyframes.cpu()).tolist(),
+             "landmarks": np.asarray(out.n_landmarks.cpu()).tolist()}
+        pose = out.pose.cpu().numpy()
+        _require(bool(np.isfinite(pose).all()), f"mono loop {name}: finite poses")
+        if name != "folded":
+            r["ate_m_scale_aligned"], r["tracked"] = ate_of_run(
+                pose, out.tracked.cpu().numpy(), gt, with_scale=True)
+        results[name] = (ms, out)
+        res[name] = r
+
+    ms, out = results["scale"]
+    res["scale"]["differs_from_plain_mono"] = not torch.equal(out.pose, off_pose)
+    ms, out = results["merge"]
+    ms2, out2 = runs["merge"]()
+    res["merge"]["repeats_bit_for_bit"] = (torch.equal(out.pose, out2.pose)
+                                           and torch.equal(out.tracked, out2.tracked)
+                                           and _maps_equal(ms, ms2))
+    flm, alive = ms.kf_feat_lm, ms.lm_alive
+    live = flm[(flm >= 0) & ms.kf_fvalid & (ms.kf_id >= 0)[:, None]].long()
+    res["merge"]["links_to_dead_landmarks"] = int((~alive[live]).sum())
+    res["merge"]["lm_obs_is_link_count"] = bool(torch.equal(
+        ms.lm_obs.long(), torch.bincount(live, minlength=ms.lm_obs.shape[0])))
+    msb, outb = results["folded"]
+    lane0 = op.MapState(*(x[0] for x in msb))
+    res["folded"]["lane0_equals_merge_bit_for_bit"] = (
+        torch.equal(outb.pose[0], out.pose) and torch.equal(outb.tracked[0], out.tracked)
+        and all(torch.equal(getattr(lane0, f), getattr(ms, f))
+                for f in ("kf_q", "kf_t", "kf_id", "kf_feat_lm", "lm_alive", "lm_obs"))
+        # past the lane's landmarks its split table holds the next lane's
+        and torch.equal(lane0.lm_pos[:, :int(ms.next_lm)], ms.lm_pos[:, :int(ms.next_lm)]))
+    res["folded"]["lane0_pose_gap"] = float((outb.pose[0] - out.pose).abs().max())
+
+    caught = _cuda_syncs(lambda: runs["merge"]())
+    res["merge"]["cuda_syncs_per_run"] = len(caught)
+    caught = _cuda_syncs(lambda: op.run_offline_pipeline(
+        cam, g, z, opts, device="cuda", monocular=True, kf_capacity=K, **MONO_KW))
+    res["merge"]["cuda_syncs_per_run_loop_off"] = len(caught)
+
+    # the two refine phases of (ii) with the pipeline's own options, each
+    # on the map it refines: the wide one on the merged map, the standard
+    # one on the wide one's result
+    run = op.build_offline_pipeline(opts, **merge)
+    ms_pre, _, _ = run.pre(cam, g, z)
+    ms_wide, _ = global_ba(ms_pre, cam, run.wide_gba_opts)
+    res["merge"]["wide_gba_ms_per_solve"] = _median_ms(
+        lambda: global_ba(ms_pre, cam, run.wide_gba_opts), reps=3)
+    res["merge"]["gba_ms_per_solve"] = _median_ms(
+        lambda: global_ba(ms_wide, cam, run.gba_opts), reps=3)
+
+    # copies of a frame get equal place descriptors and equal similarities
+    _, _, desc, valid = op.orb_extract(g[:120], n_slots=1024)
+    H = op._place_descriptors(desc, valid)
+    sim = op._block_similarity(H, 1)[0]
+    res["copies_tie_exactly"] = bool(torch.equal(H[:60], H[60:])
+                                     and torch.equal(sim[:, :60], sim[:, 60:]))
+    return res
 
 
 def run_mono_scan(grays, gt_t) -> dict:
@@ -1333,6 +1466,7 @@ def main() -> int:
 
     # ---- 9. monocular offline (config 2b) ----
     mono = run_mono_offline(grays, gt_t)
+    mono_pose = mono.pop("_pose")
     print("mono offline " + json.dumps(mono) + f" ({card})", flush=True)
     _require(mono["landmarks"] > 0, "mono landmarks from triangulated depth")
     _require(mono["k1_launches"] == -(-mono["frames"] // 8),
@@ -1344,6 +1478,61 @@ def main() -> int:
                  f"{MONO_OFF_ATE_JAX} m")
         _require(mono["tracked"] >= 0.9 * MONO_OFF_TRACKED_JAX,
                  f"mono offline tracked {mono['tracked']}")
+
+    # ---- 9b. monocular loop closure (config 2b's input) ----
+    loop = run_mono_loop(grays, gt_t, mono_pose)
+    del mono_pose
+    print("mono loop " + json.dumps(loop) + f" ({card})", flush=True)
+    ls, lm, lf = loop["scale"], loop["merge"], loop["folded"]
+    Tm = ls["frames"]
+    for name, r, n in (("scale", ls, Tm), ("merge", lm, Tm), ("folded", lf, 2 * Tm)):
+        _require(r["k1_launches"] == -(-n // 8),
+                 f"K1 launches on mono loop {name} {r['k1_launches']}")
+        _require(r["loop_verified_frames"] > 0
+                 and 0.25 <= r["loop_factor_min"] <= r["loop_factor_max"] <= 4.0,
+                 f"mono loop {name}: {r['loop_verified_frames']} verified frames, "
+                 f"factors in [{r['loop_factor_min']}, {r['loop_factor_max']}]")
+    _require(ls["differs_from_plain_mono"], "the scale re-anchoring changed the poses")
+    _require(lm["loop_pairs_verified"] > 0 and lm["loop_links_merged"] > 0,
+             f"mono loop merge: {lm['loop_pairs_verified']} pairs verified, "
+             f"{lm['loop_links_merged']} links merged")
+    _require(lm["links_to_dead_landmarks"] == 0 and lm["lm_obs_is_link_count"],
+             "after the merge every live link points at a live landmark and lm_obs "
+             "counts the links")
+    _require(lm["repeats_bit_for_bit"], "the merge run repeats bit for bit")
+    _require(lf["lane0_equals_merge_bit_for_bit"],
+             f"folded lane 0 equals the merge run bit for bit (pose gap "
+             f"{lf['lane0_pose_gap']})")
+    _require(loop["copies_tie_exactly"],
+             "copied frames get equal place descriptors and similarities")
+    for name, r in (("scale", ls), ("merge", lm)):
+        _require(r["ate_m_scale_aligned"] is not None, f"mono loop {name} has an ATE")
+    if T == 240:
+        for name, r, ate_j, tr_j, kf_j, lm_j in (
+                ("scale", ls, MONO_LOOP_ATE_JAX, MONO_LOOP_TRACKED_JAX,
+                 MONO_LOOP_KEYFRAMES_JAX, MONO_LOOP_LANDMARKS_JAX),
+                ("merge", lm, MONO_MERGE_ATE_JAX, MONO_MERGE_TRACKED_JAX,
+                 MONO_MERGE_KEYFRAMES_JAX, MONO_MERGE_LANDMARKS_JAX)):
+            _require(r["tracked"] >= 0.9 * tr_j and r["ate_m_scale_aligned"] <= 2 * ate_j,
+                     f"mono loop {name}: tracked {r['tracked']} >= 0.9 x JAX {tr_j}, "
+                     f"ATE {r['ate_m_scale_aligned']} m <= 2 x JAX {ate_j} m")
+            print(f"mono loop {name}: {r['keyframes']} keyframes, {r['landmarks']} "
+                  f"landmarks (JAX {kf_j}, {lm_j})", flush=True)
+            _require(abs(r["keyframes"] - kf_j) <= 0.1 * kf_j
+                     and abs(r["landmarks"] - lm_j) <= 0.25 * lm_j,
+                     f"mono loop {name}: keyframes {r['keyframes']} within 10% of JAX "
+                     f"{kf_j}, landmarks {r['landmarks']} within 25% of JAX {lm_j}")
+        share_j = 1 - MONO_MERGE_LANDMARKS_JAX / MONO_LOOP_LANDMARKS_JAX
+        share = 1 - lm["landmarks"] / ls["landmarks"]
+        _require(0.5 * share_j <= share <= 2 * share_j,
+                 f"the merge killed {share:.4f} of the landmarks, within [1/2, 2] x "
+                 f"JAX's {share_j:.4f}")
+    print(f"mono loop: scale {ls['fps']:.1f} fps, merge {lm['fps']:.1f} fps, folded "
+          f"{lf['fps']:.1f} aggregate fps (plain mono {mono['fps']:.1f}); wide global_ba "
+          f"{lm['wide_gba_ms_per_solve']:.2f} ms per solve, standard "
+          f"{lm['gba_ms_per_solve']:.2f} ms; {lm['cuda_syncs_per_run']} CUDA syncs per "
+          f"merge run ({lm['cuda_syncs_per_run_loop_off']} with the loop off) ({card})",
+          flush=True)
 
     # ---- 10. monocular scan (config 2) ----
     mscan = run_mono_scan(grays, gt_t)
@@ -1592,6 +1781,8 @@ def main() -> int:
         "offline": res["k1_launches"], "scan": scan["k1_launches"],
         "hole_scan": hole["k1_launches"], "lanes": lanes["k1_launches"],
         "mono_offline": mono["k1_launches"], "mono_scan": mscan["k1_launches"],
+        "mono_loop_scale": ls["k1_launches"], "mono_loop_merge": lm["k1_launches"],
+        "mono_loop_folded": lf["k1_launches"],
         "gba": gba["k1_launches"], "archive": arch["k1_launches"],
         "resume": resume["k1_launches"], "culling": cull["k1_launches"],
         "culling_keep": keep["k1_launches"],

@@ -116,13 +116,22 @@ def test_offline_mono_map_is_triangulated(offline):
     assert int(ot.n_keyframes) == int(to_np(ot.is_keyframe).sum())
 
 
-def test_mono_loop_closure_is_not_ported():
+def test_mono_loop_closure_runs():
+    """The loop-closure options run (held to the JAX package by
+    tests/test_torch_mono_loop*.py): 12 frames, revisit partners 4 frames
+    back, the merge and the two-phase refine on."""
+    grays, _, _ = sequence(40, 11, 48)
+    g = grays[:12]
     _, tc = cameras()
-    g = np.zeros((2, 8, 8), np.uint8)
-    with pytest.raises(NotImplementedError):
-        run_offline_pipeline(tc, g, np.zeros(g.shape, np.float32),
-                             TrackingOptions(), device="cpu", monocular=True,
-                             mono_loop_pairs=4)
+    stats, timings = {}, {}
+    ms, out = run_offline_pipeline(
+        tc, g, np.zeros(g.shape, np.float32), TrackingOptions(), device="cpu",
+        monocular=True, kf_capacity=8, mono_loop_pairs=4, mono_loop_merge=True,
+        mono_loop_min_gap=4, stats=stats, timings=timings)
+    assert np.isfinite(to_np(out.pose)).all() and to_np(out.tracked).sum() >= 10
+    assert {"loop_scale", "loop_merge", "refine_wide"} <= set(timings)
+    assert 0 < stats["loop_factor_min"] <= stats["loop_factor_max"]
+    assert stats["loop_pairs_verified"] >= 0 and stats["loop_links_merged"] >= 0
 
 
 def test_mono_scan_matches_jax_band():

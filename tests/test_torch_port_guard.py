@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither jax, cv2 nor
 ``visionx_slam_tpu`` (the GPU host has no jax and no cv2) — every module,
-and the offline pipeline (one lane, folded lanes, monocular), the online
+and the offline pipeline (one lane, folded lanes, monocular, with the
+monocular loop closure), the online
 scan (plain, with culling, batched, archived with the full-map global BA,
 resumed from a snapshot), ``pair_ba``, the ``System`` class on a
 sequence it wrote to disk (``scan``, ``offline`` and ``host``), the
@@ -52,6 +53,11 @@ assert n == 4 and ate < 0.02, (n, ate)
 _, outm = run_offline_pipeline(cam, g, np.zeros_like(d), TrackingOptions(),
                                device="cpu", monocular=True, kf_capacity=4)
 assert outm.pose.shape == (4, 4, 4) and bool(np.isfinite(outm.pose.numpy()).all())
+_, outl = run_offline_pipeline(cam, g, np.zeros_like(d), TrackingOptions(),
+                               device="cpu", monocular=True, kf_capacity=4,
+                               mono_loop_pairs=2, mono_loop_merge=True,
+                               mono_loop_min_gap=1)
+assert bool(np.isfinite(outl.pose.numpy()).all())
 st, out = run_scan_pipeline(cam, g, d, TrackingOptions(), device="cpu",
                             kf_capacity=8, lm_capacity=8192)
 ate, n = ate_of_run(out.pose.numpy(), out.tracked.numpy(), gt)

@@ -4,6 +4,7 @@ numpy from a seed and handed to both the JAX package and the port."""
 from __future__ import annotations
 
 import functools
+import hashlib
 
 import numpy as np
 import torch
@@ -47,3 +48,34 @@ def t(x, dtype=None) -> torch.Tensor:
     """numpy -> CPU tensor."""
     out = torch.from_numpy(np.array(x))
     return out if dtype is None else out.to(dtype)
+
+
+class OrbMemo:
+    """A stand-in for ``orb_extract`` in a module's namespace that extracts
+    each distinct frame once (keyed by its bytes) and serves it from then
+    on: the ORB of a frame does not depend on the other frames of its chunk
+    (``test_orb_memo_is_exact``), so pipelines run several times over the
+    same frames, in any order, see what ``orb_extract`` would return, and
+    a CPU test pays for each frame once."""
+
+    def __init__(self, module):
+        self.module = module
+        self.real = module.orb_extract
+        self.cache: dict = {}
+
+    def __call__(self, images: torch.Tensor, **kw):
+        keys = [(hashlib.sha1(im.cpu().numpy().tobytes()).hexdigest(),
+                 tuple(sorted(kw.items()))) for im in images]
+        miss = [i for i, k in enumerate(keys) if k not in self.cache]
+        if miss:
+            out = self.real(images[miss], **kw)
+            for j, i in enumerate(miss):
+                self.cache[keys[i]] = tuple(x[j] for x in out)
+        return tuple(torch.stack([self.cache[k][f] for k in keys]) for f in range(4))
+
+    def __enter__(self):
+        self.module.orb_extract = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.orb_extract = self.real

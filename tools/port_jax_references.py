@@ -11,6 +11,10 @@ constants).
   ``kf_capacity = default_lane_kf_capacity(120)``; rigid ATE per lane;
 - config 2b: the loop tiled 4 times at stride 4 (240 frames), zero depth,
   the monocular offline pipeline with bench.py's budget; scale-aligned ATE;
+- config 2b_loop, 2b_merge: config 2b's input and budget with the
+  monocular loop closure on (``mono_loop_pairs=12``; ``2b_merge`` also
+  ``mono_loop_merge=True``: the landmark merge and the two-phase refine);
+  chip_smoke.py's ``MONO_LOOP_*_JAX`` and ``MONO_MERGE_*_JAX``;
 - config 2: 60 frames at stride 4, zero depth, the online scan with the
   monocular option set; scale-aligned ATE;
 - cull: the 240-frame RGB-D scan with ``enable_culling=True`` (64-slot
@@ -40,7 +44,7 @@ constants).
   ``FLEET_*_JAX`` and ``DRYRUN_*_JAX``.
 
 Run from the repository root:
-``JAX_PLATFORMS=cpu python3 tools/port_jax_references.py [--configs 5 2b 2 cull cull_keep host fleet]``.
+``JAX_PLATFORMS=cpu python3 tools/port_jax_references.py [--configs 5 2b 2b_loop 2b_merge 2 cull cull_keep host fleet]``.
 Prints one JSON line per config.
 """
 
@@ -92,7 +96,7 @@ def config5(cam, opts, grays, depths, gts) -> dict:
     return {"config": "5", "lanes": lanes}
 
 
-def config2b(cam, opts, grays, gts) -> dict:
+def config2b(cam, opts, grays, gts, name="2b", **loop_kw) -> dict:
     from visionx_slam_tpu.tracking.offline_pipeline import (
         default_lane_kf_capacity,
         run_offline_pipeline,
@@ -104,9 +108,9 @@ def config2b(cam, opts, grays, gts) -> dict:
         cam, g, np.zeros(g.shape, np.float32), opts, monocular=True,
         kf_capacity=default_lane_kf_capacity(len(g)),
         mono_pair_hypotheses=64, mono_lo_starts=2, mono_sample_bias=64.0,
-        mono_score_top_k=32)
+        mono_score_top_k=32, **loop_kw)
     tr = np.asarray(out.tracked)
-    return {"config": "2b", "frames": len(g), "tracked": int(tr.sum()),
+    return {"config": name, "frames": len(g), "tracked": int(tr.sum()),
             "ate_m_scale_aligned": _ate(out.pose, tr, gt, True),
             "keyframes": int(out.n_keyframes),
             "landmarks": int(out.n_landmarks)}
@@ -271,6 +275,11 @@ def main() -> int:
     opts = TrackingOptions()
     runs = {"5": lambda: config5(cam, opts, grays, depths, gts),
             "2b": lambda: config2b(cam, opts, grays, gts),
+            "2b_loop": lambda: config2b(cam, opts, grays, gts, "2b_loop",
+                                        mono_loop_pairs=12),
+            "2b_merge": lambda: config2b(cam, opts, grays, gts, "2b_merge",
+                                         mono_loop_pairs=12,
+                                         mono_loop_merge=True),
             "2": lambda: config2(cam, opts, grays, gts),
             "cull": lambda: config_cull(cam, opts, grays, depths, gts),
             "host": lambda: config_host(args.host_frames),

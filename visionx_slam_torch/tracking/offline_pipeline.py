@@ -1,6 +1,5 @@
 """Offline SLAM over whole sequences as batched stages (the counterpart of
-``visionx_slam_tpu/tracking/offline_pipeline.py``, without the monocular
-loop closure).
+``visionx_slam_tpu/tracking/offline_pipeline.py``).
 
 Stages, as in the JAX package:
 
@@ -9,12 +8,15 @@ Stages, as in the JAX package:
 2. consecutive-pair Hamming matching and 3. the relative pose, batched over
    chunks of ``pair_chunk`` pairs: RGB-D PnP RANSAC, or (``monocular``)
    essential-matrix RANSAC and two-view triangulation, whose unit-baseline
-   scales a chain of shared-feature depth ratios ties together;
+   scales a chain of shared-feature depth ratios ties together (and, with
+   ``mono_loop_pairs``, revisits re-anchor: ``_scale_loop_correction``);
 4. absolute poses by a log-step, segmented prefix composition over SE(3);
 5. the keyframe policy (a scalar recurrence, run on the host);
 6. the keyframe chain (direct keyframe-pair PnP; the VO chain in mono),
-   ``build_keyframe_map`` and its observation links;
-7. one Gauss-Newton pass of ``global_ba``;
+   ``build_keyframe_map`` and its observation links (mono with
+   ``mono_loop_merge``: revisited landmarks merged, ``_close_loops``);
+7. one Gauss-Newton pass of ``global_ba`` (after the loop merge, a wide
+   pass first);
 8. a batched re-track of every frame against its keyframe's landmarks (in
    mono, also the following keyframe's, with DLT hypotheses).
 
@@ -32,7 +34,15 @@ A failed pair freezes its relative pose at identity (in mono it inherits
 its predecessor's). Randomness comes from ``torch.Generator``s seeded per
 stage (29, 31, 37 — the JAX package's key seeds); the bits differ from
 ``jax.random``'s, so results agree with the JAX package statistically, not
-bit for bit.
+bit for bit. The loop closure draws nothing.
+
+The loop closure's similarities are exact (integer dot products in
+float64, ``_block_similarity``), its other float sums (rotation traces, the
+5-frame smoothing) add in a fixed order by elementwise ops (``_tree_sum``,
+``_box5``), and its scatters that may meet one target twice
+keep the last write in flat order explicitly (``_last_occurrence``), so a
+run repeats bit for bit on the card and a folded lane equals its single
+run.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..models import matching
 from ..models.estimation import (
@@ -58,6 +69,7 @@ from ..ops.se3 import (
     Pose,
     identity_pose,
     matrix_to_quat,
+    quat_to_matrix,
     se3_apply,
     se3_compose,
     se3_inverse,
@@ -80,11 +92,34 @@ class OfflineOut(NamedTuple):
     n_landmarks: torch.Tensor  # [] int32 ([B] per lane when folded)
 
 
-def _chunked(fn, chunk: int, *args):
+def _chunked(fn, chunk: int, *args, lanes: int = 1):
     """``fn(*args)`` on batched tensors, in chunks of the leading axis
     (bounds the live [chunk, N, N] distance matrices); outputs are
-    concatenated along the leading axis."""
+    concatenated along the leading axis.
+
+    ``lanes=B``: the rows are B folded lanes, either frames (B x L rows)
+    or consecutive pairs (B x L - 1 rows: each lane's L - 1 pairs, then the
+    pair across to the next lane). Each lane is chunked from its own first
+    row, so its rows meet the batches of a single run of the lane (batched
+    decompositions and products round by their batch: a lane sharing a
+    chunk with the next one differed from its single run on the card); the
+    pairs across lanes go together in one more call."""
     M = args[0].shape[0]
+    if lanes > 1:
+        pairs = M % lanes != 0
+        L = (M + 1) // lanes if pairs else M // lanes
+        n = L - 1 if pairs else L
+        outs = [_chunked(fn, chunk, *(a[b * L:b * L + n] for a in args))
+                for b in range(lanes)]
+        if not pairs:
+            return tuple(torch.cat(parts) for parts in zip(*outs))
+        across = torch.arange(1, lanes, device=args[0].device) * L - 1
+        cross = fn(*(a[across] for a in args))
+        # [B, L-1] lane rows beside [B, 1] pairs across (the last lane has
+        # none: a copy pads its slot, cut off at M)
+        return tuple(torch.cat([torch.stack(parts[:-1]),
+                                torch.cat([parts[-1], parts[-1][:1]])[:, None]], 1)
+                     .flatten(0, 1)[:M] for parts in zip(*outs, cross))
     if chunk <= 0 or M <= chunk:
         return fn(*args)
     outs = [fn(*(a[i:i + chunk] for a in args)) for i in range(0, M, chunk)]
@@ -319,6 +354,7 @@ def build_offline_pipeline(
     *,
     n_features_cap: int = 1024,
     kf_capacity: int = 128,
+    lm_capacity: int | None = None,
     extract_chunk: int = 8,
     pair_chunk: int = 32,
     pnp_hypotheses: int = 16,
@@ -336,15 +372,27 @@ def build_offline_pipeline(
     mono_retrack_two_kf: bool = True,
     mono_sample_bias: float = 0.0,
     mono_link_strides: tuple[int, ...] = (1, 2),
+    # the monocular loop closure, off by default as in the JAX package
+    # (measured there on revisiting synthetic loops: no mechanism beat the
+    # plain chain; scale-aligned ATE 0.27 -> 0.39 m with the merge)
     mono_loop_pairs: int = 0,
+    mono_loop_merge: bool = False,
+    mono_loop_min_gap: int = 12,
+    mono_loop_min_inliers: int = 40,
+    mono_gba_iterations: int = 10,
+    mono_gba_max_reproj: float = 30.0,
     lanes: int = 1,
     orb_kwargs: dict | None = None,
 ):
-    """Returns run(cam, images [T,H,W] u8, depths [T,H,W] f32, timings=None)
-    -> (MapState, OfflineOut), on the device of the inputs; its stages are
-    also exposed as run.pre, run.refine and run.post. ``timings``: if a dict
-    is given, it is filled with each stage's seconds (the stages then
-    synchronize the device at their ends).
+    """Returns run(cam, images [T,H,W] u8, depths [T,H,W] f32, timings=None,
+    stats=None) -> (MapState, OfflineOut), on the device of the inputs; its
+    stages are also exposed as run.pre, run.refine and run.post, and the
+    refine's solver options as run.gba_opts and run.wide_gba_opts (None
+    without the loop merge).
+    ``timings``: if a dict is given, it is filled with each stage's seconds
+    (the stages then synchronize the device at their ends). ``stats``: if a
+    dict is given, it gets the loop closure's counts (reading them
+    synchronizes).
 
     ``monocular``: the depth input is ignored (pass zeros); poses and
     landmarks live in the scale of the chain (2 m median depth at each
@@ -352,23 +400,35 @@ def build_offline_pipeline(
     pair stage's essential RANSAC budget (hypotheses, LO starts, polish
     steps, two-tier width, PROSAC bias exp(-distance / bias)), the link
     strides of the map, and the re-track against the following keyframe
-    too. Loop closure (``mono_loop_pairs`` > 0) is not ported.
+    too.
+
+    Loop closure (mono, ``mono_loop_pairs`` > 0, per lane): every frame
+    with a verified earlier revisit at least ``mono_loop_min_gap`` frames
+    back re-anchors the chain's scale (``_scale_loop_correction``); with
+    ``mono_loop_merge`` also up to ``mono_loop_pairs`` revisiting keyframe
+    pairs per lane with ``mono_loop_min_inliers`` matches merge their
+    landmarks (``_close_loops``), and the refine first runs a wide
+    ``global_ba`` (``mono_gba_iterations`` GN steps, at least 16 CG steps,
+    gate ``mono_gba_max_reproj`` px) before the standard one.
     ``orb_kwargs``: options of ``orb_extract`` (``n_features``,
     ``resize_f32``, ...).
 
+    ``lm_capacity``: rows of the landmark table; None sizes it to
+    B x ``kf_capacity`` x ``n_features_cap``, the allocator's worst case, so
+    no landmark is dropped; a smaller table counts the ones that did not
+    fit in ``lm_dropped``.
+
     ``lanes=B``: the input is B lanes of T/B frames concatenated (module
-    docstring); ``kf_capacity`` is per lane and the landmark table holds
-    B x ``kf_capacity`` x ``n_features_cap`` rows, the allocator's worst
-    case. The per-lane counts of ``OfflineOut`` are then [B];
+    docstring); ``kf_capacity`` is per lane and ``lm_capacity`` counts the
+    merged table. The per-lane counts of ``OfflineOut`` are then [B];
     ``run_offline_pipeline_batched`` splits the result per lane."""
-    if mono_loop_pairs > 0:
-        raise NotImplementedError("the monocular loop closure is not ported")
     B = lanes
     N = n_features_cap
     K = kf_capacity                     # per lane
     orb_kw = dict(orb_kwargs or {})     # e.g. n_features, resize_f32
     KT = B * K                          # keyframe slots of the folded map
-    L = B * K * N  # the allocator's worst case: no landmark is ever dropped
+    L = B * K * N if lm_capacity is None else lm_capacity
+    loop_merge = monocular and mono_loop_pairs > 0 and mono_loop_merge
 
     def pair_pose(cam, pts3d, pts2d, vv, dcur, refine, noise):
         ident = identity_pose((len(vv),), device=vv.device)
@@ -382,6 +442,7 @@ def build_offline_pipeline(
 
     def run_pre(cam: CameraParams, images, depths, clock=None):
         clock = clock or _StageClock(None, images.device)
+        loop_stats = {}
         dev = images.device
         T = images.shape[0]
         if T % B:
@@ -415,9 +476,23 @@ def build_offline_pipeline(
              midx) = _chunked(
                 lambda *a: pair_track_mono(cam, u_pair, *a), pair_chunk,
                 desc[:-1], valid[:-1], desc[1:], valid[1:], px[:-1], px[1:],
-                wl_pair)
+                wl_pair, lanes=B)
             rt, dfeat = _scale_chain(zq_u, zn_u, midx, rt, pair_xlane,
                                      pair_ix, T_lane)
+            if mono_loop_pairs > 0:
+                clock.lap("pairs")
+                # the revisit gate needs only the rotation-only VO prefix,
+                # which does not depend on the scale
+                rot = _segmented_compose_scan(
+                    torch.where((ok & ~pair_xlane)[:, None], rq, ident.q),
+                    torch.zeros_like(rt), pair_xlane).q
+                factor, loop_ver = _scale_loop_correction(
+                    desc, valid, dfeat, torch.cat([ident.q[None], rot]), B,
+                    mono_loop_min_gap)
+                rt = rt * factor[:-1, None]
+                dfeat = dfeat * factor[:, None]
+                loop_stats.update(factor=factor, verified=loop_ver)
+                clock.lap("loop_scale")
         else:
             u_pair = _lane_draws(29, T_lane, pnp_hypotheses, N, dev)
 
@@ -436,7 +511,7 @@ def build_offline_pipeline(
             rq, rt, n_inl, ok, n_matches, parallax = _chunked(
                 pair_track, pair_chunk,
                 desc[:-1], valid[:-1], desc[1:], valid[1:],
-                px[:-1], px[1:], dfeat[:-1], dfeat[1:], wl_pair)
+                px[:-1], px[1:], dfeat[:-1], dfeat[1:], wl_pair, lanes=B)
         # cross-lane pairs never track; their stats leak nowhere
         ok = ok & ~pair_xlane
         n_inl = torch.where(pair_xlane, 0, n_inl)
@@ -512,7 +587,7 @@ def build_offline_pipeline(
                 kf_pair_track, pair_chunk,
                 kf_desc[:-1], kf_fvalid[:-1], kf_desc[1:], kf_fvalid[1:],
                 kf_px[:-1], kf_px[1:], kf_depth[:-1], kf_depth[1:],
-                kpair_within)
+                kpair_within, lanes=B)
             use_k = (ok_k & kvalid[1:] & kvalid[:-1] & ~kpair_xlane)[:, None]
             rel_k = Pose(torch.where(use_k, rk_q, vo_rel.q),
                          torch.where(use_k, rk_t, vo_rel.t))
@@ -528,11 +603,19 @@ def build_offline_pipeline(
             # BA couples the chain's relative scales over two hops
             link_strides=tuple(mono_link_strides) if monocular else (1,))
         clock.lap("map")
+        if loop_merge:
+            # folded lanes: candidates within a lane block, budget per lane
+            ms, n_ver, n_merged = _close_loops(
+                ms, mono_loop_pairs * B, mono_loop_min_gap,
+                mono_loop_min_inliers, slots_per_lane=None if B == 1 else K)
+            loop_stats.update(pairs_verified=n_ver, links_merged=n_merged)
+            clock.lap("loop_merge")
         aux = dict(poses_q=poses.q, poses_t=poses.t, tracked=tracked,
                    n_inl=n_inl, n_matches=n_matches, parallax=parallax,
                    is_kf=torch.from_numpy(is_kf_np).to(dev), px=px, desc=desc,
                    valid=valid, dfeat=dfeat,
-                   lane_lm=links.created.reshape(B, K * N).sum(1).to(torch.int32))
+                   lane_lm=links.created.reshape(B, K * N).sum(1).to(torch.int32),
+                   loop=loop_stats)
         return ms, links, aux
 
     def pair_track_mono(cam, u_pair, dq, vq, dt, vt, pxq, pxt, wl):
@@ -570,11 +653,21 @@ def build_offline_pipeline(
 
     gba_opts = GlobalBAOptions(max_iterations=max(refine_iterations, 1),
                                cg_iterations=gba_cg_iterations)
+    # after a loop merge: a wide phase whose gate admits the drifted loop
+    # observations and whose GN budget lets the correction spread along
+    # the chain, then the standard polish
+    wide_gba_opts = GlobalBAOptions(max_iterations=mono_gba_iterations,
+                                    cg_iterations=max(gba_cg_iterations, 16),
+                                    max_reproj_error=mono_gba_max_reproj)
 
-    def run_refine(cam: CameraParams, ms: MapState) -> MapState:
+    def run_refine(cam: CameraParams, ms: MapState, clock=None) -> MapState:
         # folded lanes: one merged solve, gauge-grouped per lane block
         gg = (None if B == 1 else torch.arange(B, device=ms.kf_q.device)
               .repeat_interleave(K))
+        if loop_merge:
+            ms, _ = global_ba(ms, cam, wide_gba_opts, gauge_group=gg)
+            if clock is not None:
+                clock.lap("refine_wide")
         ms, _ = global_ba(ms, cam, gba_opts, gauge_group=gg)
         return ms
 
@@ -642,7 +735,7 @@ def build_offline_pipeline(
 
         rt_q, rt_t, rt_inl, rt_ok = _chunked(
             frame_retrack, pair_chunk, kd, kv, flm, desc, valid, px, poses.q,
-            poses.t, frame_ids % T_lane, *(() if monocular else (dfeat,)))
+            poses.t, frame_ids % T_lane, *(() if monocular else (dfeat,)), lanes=B)
         poses = Pose(torch.where(rt_ok[:, None], rt_q, poses.q),
                      torch.where(rt_ok[:, None], rt_t, poses.t))
         zero_i = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -664,18 +757,41 @@ def build_offline_pipeline(
         )
         return ms, out
 
-    def run(cam: CameraParams, images, depths, timings: dict | None = None):
+    def run(cam: CameraParams, images, depths, timings: dict | None = None,
+            stats: dict | None = None):
         clock = _StageClock(timings, images.device)
         ms, _, aux = run_pre(cam, images, depths, clock)
         if refine_iterations > 0:
-            ms = run_refine(cam, ms)
+            ms = run_refine(cam, ms, clock)
         clock.lap("refine")
         ms, out = run_post(cam, ms, aux)
         clock.lap("retrack")
+        if stats is not None:
+            stats.update(_loop_counts(aux["loop"], B))
         return ms, out
 
     run.pre, run.refine, run.post = run_pre, run_refine, run_post
+    run.gba_opts = gba_opts
+    run.wide_gba_opts = wide_gba_opts if loop_merge else None
     return run
+
+
+def _loop_counts(loop: dict, B: int) -> dict:
+    """Host numbers of the loop closure's outputs (empty when it is off):
+    frames whose revisit passed the gates, per lane and in all, the range of
+    the scale factors, and the merge's verified keyframe pairs and merged
+    landmark links."""
+    out = {}
+    if "factor" in loop:
+        ver = loop["verified"].reshape(B, -1)
+        f = loop["factor"]
+        out.update(loop_verified_frames=int(ver.sum()),
+                   loop_verified_frames_per_lane=ver.sum(1).tolist(),
+                   loop_factor_min=float(f.min()), loop_factor_max=float(f.max()))
+    if "pairs_verified" in loop:
+        out.update(loop_pairs_verified=int(loop["pairs_verified"]),
+                   loop_links_merged=int(loop["links_merged"]))
+    return out
 
 
 def _scale_chain(zq_u, zn_u, midx, rt, pair_xlane, pair_ix, T_lane: int):
@@ -706,6 +822,253 @@ def _scale_chain(zq_u, zn_u, midx, rt, pair_xlane, pair_ix, T_lane: int):
     s = torch.exp(log_s) * c[pair_ix // T_lane]          # [T-1]
     dfeat = torch.cat([zq_u * s[:, None], zq_u.new_zeros(1, N)])
     return rt * s[:, None], dfeat
+
+
+def _tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (a power of two long) by pairwise halving:
+    elementwise adds in an order fixed by the length alone, so equal rows
+    give equal sums, on any device and whatever the leading shape (a
+    reduction kernel picks its order by the shape)."""
+    n = x.shape[-1]
+    while n > 1:
+        n //= 2
+        x = x[..., :n] + x[..., n:]
+    return x[..., 0]
+
+
+def _cos_angle(Ra: torch.Tensor, Rb: torch.Tensor) -> torch.Tensor:
+    """cos of the angle of Ra Rb^T, from its trace, for [..., 3, 3]."""
+    tr = _tree_sum(F.pad((Ra * Rb).flatten(-2), (0, 7)))
+    return torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0)
+
+
+def _cos_deg(deg: float) -> float:
+    """cos of an angle in degrees, in float32 as the JAX package's gate
+    constants are."""
+    return float(torch.cos(torch.deg2rad(torch.tensor(deg, dtype=torch.float32))))
+
+
+_LOG4 = float(torch.log(torch.tensor(4.0)))    # float32, as in the JAX gate
+
+
+def _place_descriptors(desc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """[M,256] float64 bag-of-bits descriptors of M frames, as integers:
+    2 x each ORB bit's count over the n valid features, less n (n at least
+    1). That is the JAX package's descriptor (each bit's rate less 0.5)
+    times 2n, so it has the same cosines (the counts are integers, exact in
+    float32 in any order)."""
+    v = valid.float()
+    C = torch.einsum("mnb,mn->mb", matching.unpack_bits(desc), v)
+    return (2.0 * C - torch.clamp(v.sum(1), min=1.0)[:, None]).double()
+
+
+def _block_similarity(H: torch.Tensor, blocks: int) -> torch.Tensor:
+    """Float32 cosine similarities of the descriptors ``H`` within each of
+    ``blocks`` equal runs of rows: [blocks, M/blocks, M/blocks] (the only
+    candidates of a folded map). The dot products and squared norms of
+    the integer descriptors (at most 256 x 1024^2 < 2^53) are exact in
+    float64 whatever the order of the sum, so copies of a frame tie exactly
+    and a folded lane gets its single run's values; memory is O(M^2 /
+    blocks)."""
+    Hb = H.reshape(blocks, -1, H.shape[-1])
+    nrm = torch.clamp(torch.sqrt((Hb * Hb).sum(-1)), min=1.0)   # H = 0: cos 0
+    dot = torch.bmm(Hb, Hb.transpose(1, 2))
+    return (dot / (nrm[:, :, None] * nrm[:, None, :])).float()
+
+
+def _best_candidate(sim: torch.Tensor, cand: torch.Tensor):
+    """(index within the block of the most similar candidate, its
+    similarity; -inf where there is none) per row of [B,M,M]; ties go to
+    the lowest index, as ``jnp.argmax``'s."""
+    simm = torch.where(cand, sim, -torch.inf)
+    return torch.argmax(simm, -1), simm.amax(-1)
+
+
+def _box5(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the 5-frame window centred on each entry of every row of
+    [B,T] (zeros past the row's ends: ``jnp.convolve(.., ones(5),
+    "same")`` per lane), by elementwise adds in a fixed order."""
+    n = x.shape[-1]
+    p = F.pad(x, (2, 2))
+    return p[..., :n] + p[..., 1:n + 1] + p[..., 2:n + 2] + p[..., 3:n + 3] + p[..., 4:n + 4]
+
+
+def _scale_loop_correction(desc: torch.Tensor, valid: torch.Tensor,
+                           dfeat: torch.Tensor, frame_q: torch.Tensor,
+                           B_lanes: int, min_gap: int,
+                           max_rot_deg: float = 35.0, min_sim: float = 0.55,
+                           min_depth_count: int = 16):
+    """Monocular scale re-anchoring at revisits (the JAX package's
+    ``_scale_loop_correction``; the chain's scale error is a random walk,
+    so it is corrected frame by frame, not as a ramp).
+
+    Each frame's partner is the most similar earlier frame of its lane at
+    least ``min_gap`` frames back (bag-of-bits cosine). The pair is
+    verified by similarity >= ``min_sim``, the VO chain's relative rotation
+    within ``max_rot_deg`` (``frame_q`` [T,4], the rotation-only prefix; a
+    true revisit has ~zero baseline, where an epipolar check degenerates),
+    at least ``min_depth_count`` synthesized depths at both ends and a
+    median log-depth difference within log 4. That difference, smoothed
+    over 5 frames of the lane (verified frames weighted 1, others 0), is
+    the frame's log-scale error. Returns (factor [T], the per-frame scale
+    multipliers, 1 where nothing was verified nearby; verified [T] bool).
+    """
+    T = valid.shape[0]
+    T_lane = T // B_lanes
+    dev = valid.device
+    sim = _block_similarity(_place_descriptors(desc, valid), B_lanes)
+    tl = torch.arange(T_lane, device=dev)
+    cand = (tl[:, None] - tl[None, :]) >= min_gap            # partner earlier
+    part, psim = _best_candidate(sim, cand.expand(B_lanes, -1, -1))
+    part = (part + (torch.arange(B_lanes, device=dev) * T_lane)[:, None]).reshape(T)
+    psim = psim.reshape(T)
+
+    R = quat_to_matrix(frame_q)
+    cos_ang = _cos_angle(R, R[part])
+    dvalid = dfeat > 1e-6
+    cnt = dvalid.sum(1)
+    ld = torch.where(dvalid, torch.log(torch.clamp(dfeat, min=1e-9)), torch.nan)
+    med = torch.nan_to_num(nanmedian(ld, dim=1))
+    delta_raw = med - med[part]
+    ver = (torch.isfinite(psim) & (psim >= min_sim)
+           & (cos_ang >= _cos_deg(max_rot_deg))
+           & (cnt >= min_depth_count) & (cnt[part] >= min_depth_count)
+           & (delta_raw.abs() <= _LOG4))
+    w = ver.float().reshape(B_lanes, T_lane)
+    num = _box5(torch.where(ver, delta_raw, 0.0).reshape(B_lanes, T_lane) * w).reshape(T)
+    den = _box5(w).reshape(T)
+    delta_s = torch.where(den > 0, num / torch.clamp(den, min=1.0), 0.0)
+    return torch.exp(-delta_s), ver
+
+
+def _greedy_pairs(best_t: np.ndarray, best_s: np.ndarray, n_pairs: int,
+                  spl: int):
+    """The revisit pairs to verify, on the host: queries by falling
+    similarity (stable), each taken when neither end was taken before, then
+    the first ``n_pairs / lanes`` taken of each lane into that lane's
+    block of the budget. Returns (query, target) slots [n_pairs], -1 where
+    a block is not full."""
+    K = len(best_t)
+    order = np.argsort(-best_s, kind="stable")
+    used = np.zeros(K, bool)
+    n_lanes = K // spl
+    per_lane = n_pairs // n_lanes
+    taken = np.zeros(n_lanes, np.int64)
+    qs = np.full(n_pairs, -1, np.int64)
+    ts = np.full(n_pairs, -1, np.int64)
+    for qi in order:
+        ti = best_t[qi]
+        if not np.isfinite(best_s[qi]) or used[qi] or used[ti]:
+            continue
+        used[qi] = used[ti] = True
+        lane = qi // spl
+        if taken[lane] < per_lane:
+            qs[lane * per_lane + taken[lane]] = qi
+            ts[lane * per_lane + taken[lane]] = ti
+        taken[lane] += 1
+    return qs, ts
+
+
+def _last_occurrence(idx: torch.Tensor) -> torch.Tensor:
+    """[R] bool: entry r is the last of the entries holding its value, in
+    flat order (what the JAX package's scatters keep on duplicates). A
+    scatter through only these entries has no duplicate target, so it is
+    deterministic on CUDA too."""
+    order = stable_argsort(idx)
+    s = idx[order]
+    last = torch.cat([s[1:] != s[:-1], torch.ones_like(s[:1], dtype=torch.bool)])
+    out = torch.empty_like(last)
+    out[order] = last
+    return out
+
+
+def _close_loops(ms: MapState, n_pairs: int, min_gap_frames: int,
+                 min_inliers: int, slots_per_lane: int | None = None,
+                 max_rot_deg: float = 35.0):
+    """Monocular loop closure as landmark merges (the JAX package's
+    ``_close_loops``): revisiting keyframe pairs found by bag-of-bits
+    similarity, verified by match count and the map's relative rotation,
+    and the later keyframe's landmarks merged into the earlier one's, so
+    the merged landmarks carry observations from both ends of the loop.
+
+    1. Each keyframe's candidate is its most similar keyframe at least
+       ``min_gap_frames`` frames LATER (within its lane block of
+       ``slots_per_lane`` slots in a folded map).
+    2. Greedy selection without a shared slot, ``n_pairs`` in all, split
+       evenly over the lanes (``_greedy_pairs``; one read of the device).
+    3. ``match_frames`` on the selected pairs; a pair counts with at least
+       ``min_inliers`` matches and a map rotation within ``max_rot_deg``
+       (a same-scene pair seen from the opposite side has real parallax).
+    4. Matched live landmark pairs (early, late) merge: the late one is
+       remapped to the early one and dies. A merge whose early landmark
+       dies elsewhere, or whose late one survives elsewhere, is dropped so
+       that one gather remaps the table; a late landmark matched twice
+       takes the last match in flat order. Observation counts are rebuilt
+       from the links.
+
+    Returns (ms, pairs verified, landmark links merged), counts as 0-d
+    int32 tensors."""
+    K, N = ms.kf_fvalid.shape
+    Lp = ms.lm_physical
+    dev = ms.kf_q.device
+    kvalid = ms.kf_id >= 0
+    fvalid = ms.kf_fvalid & kvalid[:, None]
+    spl = K if slots_per_lane is None else min(slots_per_lane, K)
+    n_lanes = K // spl
+
+    # ---- 1. place recognition, within lane blocks ----
+    sim = _block_similarity(_place_descriptors(ms.kf_desc, fvalid), n_lanes)
+    kid = ms.kf_id.long().reshape(n_lanes, spl)
+    kv = kvalid.reshape(n_lanes, spl)
+    cand = (kv[:, :, None] & kv[:, None, :]
+            & ((kid[:, None, :] - kid[:, :, None]) >= min_gap_frames))
+    best, best_s = _best_candidate(sim, cand)
+    best_t = best + (torch.arange(n_lanes, device=dev) * spl)[:, None]
+
+    # ---- 2. greedy slot-unique selection on the host ----
+    host = torch.stack([best_t.reshape(K).double(), best_s.reshape(K).double()]).cpu().numpy()
+    qs, ts = _greedy_pairs(host[0].astype(np.int64), host[1].astype(np.float32),
+                           n_pairs, spl)
+    sel = torch.from_numpy(np.stack([qs, ts])).to(dev)
+    active = sel[0] >= 0
+    qc, tc = sel[0].clamp(min=0), sel[1].clamp(min=0)
+
+    # ---- 3. match + map-rotation verification ----
+    res = matching.match_frames(ms.kf_desc[qc], fvalid[qc] & active[:, None],
+                                ms.kf_desc[tc], fvalid[tc])
+    inl = res.valid & active[:, None]
+    cos_ang = _cos_angle(quat_to_matrix(ms.kf_q[tc]), quat_to_matrix(ms.kf_q[qc]))
+    pair_ok = (active & (inl.sum(1) >= min_inliers)
+               & (cos_ang >= _cos_deg(max_rot_deg)))
+
+    # ---- 4. conflict-free landmark merge ----
+    alive = ms.lm_alive
+    lmq = ms.kf_feat_lm[qc].long()                               # [P,N]
+    lmt = torch.gather(ms.kf_feat_lm[tc].long(), 1, res.idx)
+    cq, ct = lmq.clamp(0, Lp - 1), lmt.clamp(0, Lp - 1)
+    okl = (inl & pair_ok[:, None] & (lmq >= 0) & (lmt >= 0) & (lmq != lmt)
+           & alive[cq] & alive[ct])
+
+    def flags(idx):   # [Lp] bool: the rows named by idx (Lp: none)
+        return torch.zeros(Lp + 1, dtype=torch.bool, device=dev).index_fill_(
+            0, idx.reshape(-1), True)[:Lp]
+
+    in_keep = flags(torch.where(okl, lmq, Lp))
+    in_die = flags(torch.where(okl, lmt, Lp))
+    safe = okl & ~in_die[cq] & ~in_keep[ct]
+    src = torch.where(safe, lmt, Lp).reshape(-1)
+    dst = torch.where(safe, lmq, 0).reshape(-1)
+    remap = torch.arange(Lp + 1, device=dev)
+    remap[torch.where(_last_occurrence(src), src, Lp)] = dst
+    flm = ms.kf_feat_lm
+    new_flm = torch.where(flm >= 0, remap[flm.long().clamp(0, Lp - 1)].to(flm.dtype), flm)
+    lm_alive = alive & ~flags(src)
+    hist = torch.zeros(Lp + 1, dtype=ms.lm_obs.dtype, device=dev)
+    linked = torch.where(fvalid & (new_flm >= 0), new_flm.long(), Lp).reshape(-1)
+    hist.index_add_(0, linked, torch.ones_like(linked, dtype=hist.dtype))
+    ms = ms._replace(kf_feat_lm=new_flm, lm_alive=lm_alive,
+                     lm_obs=torch.where(lm_alive, hist[:Lp], 0))
+    return ms, pair_ok.sum().to(torch.int32), safe.sum().to(torch.int32)
 
 
 def split_merged_lanes(ms: MapState, B: int, K: int, N: int, T_lane: int,
@@ -751,15 +1114,17 @@ def run_offline_pipeline(
     opts: TrackingOptions,
     device="cuda",
     timings: dict | None = None,
+    stats: dict | None = None,
     **kw,                     # build_offline_pipeline options
 ) -> tuple[MapState, OfflineOut]:
     """The offline pipeline on ``device`` with the JAX package's defaults
     (RGB-D, or ``monocular=True`` with the ``mono_*`` knobs); returns
-    (MapState, OfflineOut)."""
+    (MapState, OfflineOut). ``timings``, ``stats``: see
+    ``build_offline_pipeline``."""
     dev = torch.device(device)
     images = torch.as_tensor(images_u8).to(dev)
     depths = torch.as_tensor(depths_m).to(dev, torch.float32)
-    return build_offline_pipeline(opts, **kw)(cam, images, depths, timings)
+    return build_offline_pipeline(opts, **kw)(cam, images, depths, timings, stats)
 
 
 def run_offline_pipeline_batched(
@@ -769,6 +1134,7 @@ def run_offline_pipeline_batched(
     opts: TrackingOptions,
     device="cuda",
     timings: dict | None = None,
+    stats: dict | None = None,
     **kw,                     # build_offline_pipeline options
 ) -> tuple[MapState, OfflineOut]:
     """B sequences of T frames as folded lanes (BASELINE config 5): one
@@ -785,7 +1151,7 @@ def run_offline_pipeline_batched(
     K = kw.setdefault("kf_capacity", default_lane_kf_capacity(T))
     run = build_offline_pipeline(opts, lanes=B, **kw)
     flat = lambda x: x.reshape(B * T, *x.shape[2:])
-    ms, out = run(cam, flat(images), flat(depths), timings)
+    ms, out = run(cam, flat(images), flat(depths), timings, stats)
     lane = lambda x: x.reshape(B, T, *x.shape[1:])
     n_lm = out.n_landmarks.reshape(B)
     out = OfflineOut(

@@ -7,7 +7,7 @@ input: scene seed 5) and checks their accuracy: the RGB-D offline
 pipeline; the online scan (per-frame tracking, keyframes, local BA) as one
 run, streamed in 8-frame chunks, with a depth hole (the left 200 columns:
 triangulated landmarks, so local BA iterates), and over the sequence tiled
-five times (1200 frames: the keyframe ring wraps and the landmark table is
+three times (720 frames: the keyframe ring wraps and the landmark table is
 compacted at full capacity); the offline pipeline over 8 folded lanes of
 120 frames (BASELINE config 5); the monocular offline pipeline over the
 sequence tiled four times at stride 4 (config 2b), and on that input with
@@ -33,7 +33,13 @@ SLAM step over a fleet of 8 lanes built from the first 9 frames on disk,
 the sharded offline pipeline over config 5's lanes (bit for bit the folded
 lanes' result), and the dry run. The solvers' float sums add in a fixed
 order, so ``global_ba``, local BA and the scan are checked to repeat bit
-for bit.
+for bit. Then the measurement layer: the port's bench entry
+(``python -m visionx_slam_torch.bench``, the headline and the six
+BASELINE configs) in a process of its own, its last line parsed and every
+config held to the limits of PERF.md Section 2; the roofline report over
+48 frames; and the profiling knobs (``orb_extract``'s ``profile_stage`` and
+``use_kernel``, the scan's ``stage_limit``) with the two profilers that
+turn them.
 
 Run from the repository root: ``python3 chip_smoke.py [--frames N]``.
 It exits non-zero (and prints no result) without a CUDA device or when any
@@ -112,17 +118,16 @@ def _kernel_record(name: str, replaces: str, n_bytes: int, n_ops: int,
                    max_err: float, ms: float, plain_ms: float) -> dict:
     """A kernel's entry of the result line. Its bound is the larger of the
     bytes it must move over the H100's 3.35 TB/s and its arithmetic over the
-    67 TFLOP/s of float32 outside the tensor cores."""
-    from visionx_slam_torch.tools import k1_bench
+    67 TFLOP/s of float32 outside the tensor cores (``utils.flops``)."""
+    from visionx_slam_torch.utils import flops
 
-    bytes_ms = k1_bench.bound_ms(n_bytes)
-    ops_ms = n_ops / k1_bench.F32_OPS_PER_S * 1e3
-    bound = max(bytes_ms, ops_ms)
+    bound = flops.bound_ms(n_bytes, n_ops)
     return {"name": name, "route": "cuda",
             "source": "visionx_slam_torch/csrc/fast_harris_blur.cu",
             "replaces": replaces, "launches": 0, "max_abs_err": max_err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_by": ("bytes" if flops.bound_ms(n_bytes) >= flops.bound_ms(0, n_ops)
+                         else "operations"),
             "library_ms": None, "bytes": n_bytes, "bound_share": bound / ms}
 
 
@@ -135,6 +140,7 @@ def check_k1(grays_u8) -> dict:
     from visionx_slam_torch.models.orb_torch import build_atlas
     from visionx_slam_torch.ops import detect
     from visionx_slam_torch.tools import k1_bench
+    from visionx_slam_torch.utils import flops
 
     atlas, mask = build_atlas(torch.as_tensor(grays_u8).cuda())
     max_err = k1_bench.check_k1(k1_bench.exact_cases(atlas, mask)[0])
@@ -144,8 +150,8 @@ def check_k1(grays_u8) -> dict:
           f"({_card()})", flush=True)
     return _kernel_record("fast_harris_blur",
                           "visionx_slam_tpu/ops/pallas_detect.py:167",
-                          k1_bench.k1_bytes(atlas.shape),
-                          k1_bench.k1_ops(atlas.shape), max_err, ms_k, ms_p)
+                          flops.k1_bytes(atlas.shape),
+                          flops.k1_ops(atlas.shape), max_err, ms_k, ms_p)
 
 
 def time_k1_one_frame(gray_u8) -> dict:
@@ -156,15 +162,15 @@ def time_k1_one_frame(gray_u8) -> dict:
     from visionx_slam_torch.models.orb_torch import build_atlas
     from visionx_slam_torch.ops import detect
     from visionx_slam_torch.tools import k1_bench
+    from visionx_slam_torch.utils import flops
 
     atlas, mask = build_atlas(torch.as_tensor(gray_u8).cuda()[None])
     k1_bench.check_k1([("one-frame atlas", atlas, mask)])
-    n_bytes = k1_bench.k1_bytes(atlas.shape)
+    n_bytes = flops.k1_bytes(atlas.shape)
     out = {"shape": list(atlas.shape), "bytes": n_bytes,
            "ms": _time_ms(lambda: detect.fast_harris_blur(atlas, mask)),
            "plain_ms": _time_ms(lambda: detect.fast_harris_blur_reference(atlas, mask)),
-           "bound_ms": max(k1_bench.bound_ms(n_bytes),
-                           k1_bench.k1_ops(atlas.shape) / k1_bench.F32_OPS_PER_S * 1e3)}
+           "bound_ms": flops.bound_ms(n_bytes, flops.k1_ops(atlas.shape))}
     print(f"K1 {tuple(atlas.shape)}: {out['ms']:.4f} ms, plain "
           f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.5f} ms ({_card()})",
           flush=True)
@@ -180,6 +186,7 @@ def check_k1b(grays_u8) -> dict:
     from visionx_slam_torch.models.orb_torch import build_atlas
     from visionx_slam_torch.ops import detect
     from visionx_slam_torch.tools import k1_bench
+    from visionx_slam_torch.utils import flops
 
     atlas, mask = build_atlas(torch.as_tensor(grays_u8).cuda())
     cases = k1_bench.exact_cases(atlas, mask)[1]
@@ -191,7 +198,7 @@ def check_k1b(grays_u8) -> dict:
           f"({_card()})", flush=True)
     return _kernel_record("fast_harris_score",
                           "visionx_slam_tpu/ops/pallas_detect.py:213",
-                          k1_bench.k1b_bytes(x.shape), k1_bench.k1b_ops(x.shape),
+                          flops.k1b_bytes(x.shape), flops.k1b_ops(x.shape),
                           max_err, ms_k, ms_p)
 
 
@@ -241,7 +248,11 @@ def run_pipeline(grays, depths, gt_t) -> dict:
 SCAN_ATE_JAX = 0.004458
 SCAN_KF_JAX = 77
 LONG_ATE_JAX = 0.016208
-LONG_REPS = 5   # tiles of the sequence in the long scan (BASELINE config 3)
+# tiles of the sequence in the long scan phase: 3 (720 frames) still wraps
+# the 64-slot ring and compacts the landmark table; the bench phase runs
+# BASELINE config 3 itself at 5 tiles (1200 frames) and is held to
+# LONG_ATE_JAX
+LONG_REPS = 3
 # With no depth in the left 200 columns, the JAX scan on the CPU: 240/240
 # tracked at ATE 10.8675 mm, 77 keyframe events, 57,999 landmarks.
 HOLE_COLS = 200
@@ -259,10 +270,11 @@ HOLE_LM_JAX = 57999
 # scale-aligned ATE 18.2-239.5 mm (median 22.8 mm); the package's own draw
 # reads 55/60 at 149.3 mm. The port's scan is held to the median draw.
 LANES_B, LANES_T = 8, 120
-# The batched scan runs the first half of each window: its checks compare
-# the port with itself (lane against single run), and the 8 lanes plus the 8
-# single runs are the longest phase of the script.
-BSCAN_T = 60
+# The batched scan runs the first quarter of each window (half until PR 8):
+# its checks compare the port with itself (lane against single run), and
+# the 8 lanes plus the 8 single runs were the longest phase of the script
+# before the bench phase came.
+BSCAN_T = 30
 LANES_ATE_JAX = (0.005571, 0.005413, 0.004859, 0.003390,
                  0.003650, 0.003943, 0.004718, 0.005709)
 MONO_OFF_ATE_JAX = 0.357560
@@ -1351,6 +1363,212 @@ def check_multi_device(md: dict, lanes: dict) -> None:
              f"landmarks within 10%): {dr}")
 
 
+# The port's bench entry run as ``python -m visionx_slam_torch.bench``
+# does, in a process of its own, reporting K1's launches of the whole run
+_BENCH_RUN = """
+import runpy, sys
+from visionx_slam_torch.ops import detect
+sys.argv[0] = "visionx_slam_torch.bench"
+try:
+    runpy.run_module("visionx_slam_torch.bench", run_name="__main__")
+finally:
+    print(f"K1_LAUNCHES {detect.launches}", file=sys.stderr)
+"""
+BENCH_CONFIGS = ("1_online_scan", "2_monocular", "2b_monocular_offline",
+                 "3_long_sequence", "4_fullmap_gba", "5_batched_offline")
+
+
+def _finite_numbers(d: dict) -> bool:
+    import math
+
+    nums = [v for v in d.values() if isinstance(v, (int, float))
+            and not isinstance(v, bool)]
+    return bool(nums) and all(math.isfinite(v) for v in nums)
+
+
+def run_bench(runs: int = 2) -> dict:
+    """The port's bench at full width (240 frames, 640x480, 1024 slots, the
+    six configs) in a process of its own: its last line, its whole result
+    (the line before, and the ``--json`` file), K1's launches and its wall
+    time."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bench.json")
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", _BENCH_RUN, "--runs", str(runs),
+                              "--json", path], cwd=root, capture_output=True,
+                             text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        _require(res.returncode == 0,
+                 f"the bench exited {res.returncode}: {res.stderr[-3000:]}")
+        with open(path) as f:
+            saved = json.load(f)
+    lines = res.stdout.strip().splitlines()
+    launches = [int(x.split()[1]) for x in res.stderr.splitlines()
+                if x.startswith("K1_LAUNCHES")]
+    return {"last_line": lines[-1], "result": json.loads(lines[-2]),
+            "saved": saved, "k1_launches": launches[-1], "seconds": wall}
+
+
+def check_bench(b: dict) -> None:
+    """The bench's last line parses and is short; no config errored or was
+    skipped; every path's tracked frames and ATE within PERF.md Section 2's
+    limits; the MFU and roofline blocks present and finite."""
+    import numpy as np
+
+    _require(len(b["last_line"]) <= 500, f"bench last line of {len(b['last_line'])} "
+             "characters")
+    summary = json.loads(b["last_line"])
+    res = b["result"]
+    _require(res == b["saved"], "the bench's --json file holds its printed result")
+    _require(all(summary[k] == res[k] for k in ("metric", "value", "unit",
+                                                 "vs_baseline")),
+             "the last line summarises the whole result")
+    d = res["detail"]
+    T = d["n_frames"]
+    _require(T == 240 and d["n_tracked"] >= 228 and d["ate_rmse_m"] <= 0.011,
+             f"bench headline: tracked {d['n_tracked']}/{T}, ATE {d['ate_rmse_m']} m")
+    _require(d["mfu"] > 0 and _finite_numbers(d["roofline"]),
+             f"bench headline MFU {d.get('mfu')} and roofline {d.get('roofline')}")
+    cfg = d["configs"]
+    _require(tuple(cfg) == BENCH_CONFIGS, f"bench configs {list(cfg)}")
+    for name, c in cfg.items():
+        _require("error" not in c and "skipped" not in c, f"bench config {name}: {c}")
+    c1, c2, c2b = cfg["1_online_scan"], cfg["2_monocular"], cfg["2b_monocular_offline"]
+    c3, c4, c5 = cfg["3_long_sequence"], cfg["4_fullmap_gba"], cfg["5_batched_offline"]
+    _require(c1["tracked_frac"] >= 0.95 and c1["ate_rmse_m"] <= 2 * SCAN_ATE_JAX,
+             f"bench config 1: {c1['tracked_frac']}, {c1['ate_rmse_m']} m")
+    _require(c1["mfu"] > 0 and _finite_numbers(c1["roofline"])
+             and c1["latency_ms_p99"] >= c1["latency_ms_p50"] > 0,
+             f"bench config 1's MFU, roofline and latency: {c1}")
+    _require(c2["tracked_frac"] * c2["n_frames"] >= MONO_SCAN_TRACKED_JAX - 4
+             and c2["ate_rmse_m_scale_aligned"] <= 2 * MONO_SCAN_ATE_JAX,
+             f"bench config 2: {c2}")
+    _require(c2b["tracked_frac"] * c2b["n_frames"] >= 0.9 * MONO_OFF_TRACKED_JAX
+             and c2b["ate_rmse_m_scale_aligned"] <= 2 * MONO_OFF_ATE_JAX,
+             f"bench config 2b: {c2b}")
+    _require(c3["n_frames"] == 1200 and c3["tracked_frac"] >= 0.95
+             and c3["ate_rmse_m"] <= 2 * LONG_ATE_JAX, f"bench config 3: {c3}")
+    _require(c4["n_keyframes"] >= 68 and c4["pair_ba_ms_per_solve"] > 0
+             and c4["global_ba_ms_per_solve"] > 0, f"bench config 4: {c4}")
+    _require(c5["tracked_frac"] >= 0.95
+             and c5["ate_rmse_m_mean"] <= 2 * float(np.mean(LANES_ATE_JAX)),
+             f"bench config 5: {c5}")
+
+
+def run_roofline(frames: int = 48) -> dict:
+    """The roofline tool's report over ``frames`` bench frames."""
+    from visionx_slam_torch.ops import detect
+    from visionx_slam_torch.tools import roofline
+
+    detect.launches = 0
+    t0 = time.perf_counter()
+    out = roofline.report(frames, runs=2, device="cuda")
+    out["seconds"] = time.perf_counter() - t0
+    out["k1_launches"] = detect.launches
+    return out
+
+
+def check_roofline(r: dict) -> None:
+    import math
+
+    names = [row["stage"] for row in r["stages"]]
+    _require(names == ["extract", "match", "pnp_prior", "kf_event(insert+depth_lm+tri)",
+                       "local_ba(per GN iter)"], f"roofline stages {names}")
+    for row in r["stages"]:
+        # local BA's row is its count per iteration times the iterations
+        # measured, none where every feature has depth
+        idle = row["stage"].startswith("local_ba") and r["ba_iters_measured"] == 0
+        _require(row["ms_per_frame"] is not None and row["ms_per_frame"] > 0
+                 and (idle or (row["flops_per_frame"] > 0
+                               and row["bytes_per_frame"] > 0)),
+                 f"roofline stage {row}")
+    _require(all(math.isfinite(r[k]) for k in (
+        "t_full_ms_per_frame", "t_extract_ms_per_frame", "attributed_ms_per_frame",
+        "residual_glue_ms_per_frame", "ba_iters_measured"))
+             and r["events_per_frame"] > 0 and _finite_numbers(r["summary"]),
+             f"roofline totals {r['summary']}")
+
+
+def run_knobs(grays, depths) -> dict:
+    """The profiling knobs at full width: ``orb_extract``'s ``profile_stage``
+    0-3 and ``use_kernel`` on the 8-frame chunk, the scan's ``stage_limit``
+    0, 1, 3, 4 over the first 48 frames, then the two profilers that turn
+    them (``profile_stages``, ``profile_scan``) at 16 frames."""
+    import torch
+
+    from visionx_slam_torch.models.orb_torch import orb_extract
+    from visionx_slam_torch.ops import detect
+    from visionx_slam_torch.tools import profile_scan, profile_stages
+    from visionx_slam_torch.tracking.scan_pipeline import INIT, run_scan_pipeline
+    from visionx_slam_torch.utils.config import TrackingOptions
+
+    g8 = torch.as_tensor(grays[:8]).cuda()
+    full = orb_extract(g8)
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))
+    detect.launches = 0
+    stages = {k: orb_extract(g8, profile_stage=k) for k in range(4)}
+    res = {"orb_k1_launches": detect.launches}
+    res["stage3_is_full_extract"] = same(stages[3], full)
+    px0, resp0, desc0, valid0 = stages[0]
+    res["stage0_dense_only"] = bool(
+        torch.isfinite(resp0[:, 0]).all() and (resp0[:, 0] > 0).all()
+        and not resp0[:, 1:].any() and not px0.any() and not desc0.any()
+        and not valid0.any())
+    res["stages12_zero_descriptors"] = all(
+        torch.equal(stages[k][1], full[1]) and torch.equal(stages[k][3], full[3])
+        and not stages[k][2].any() for k in (1, 2))
+    res["use_kernel_0_equals_k1"] = same(orb_extract(g8, use_kernel=0), full)
+    res["use_kernel_1_equals_k1"] = same(orb_extract(g8, use_kernel=1), full)
+
+    cam = _camera()
+    g = torch.as_tensor(grays[:48]).cuda()
+    d = torch.as_tensor(depths[:48]).cuda()
+    res["stage_limit"] = {}
+    for k in (0, 1, 3, 4):
+        stats: dict = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, out = run_scan_pipeline(cam, g, d, TrackingOptions(), stage_limit=k,
+                                    device="cuda", stats=stats)
+        torch.cuda.synchronize()
+        res["stage_limit"][k] = {
+            "fps": len(g) / (time.perf_counter() - t0),
+            "host_syncs": stats["host_syncs"],
+            "tracked": int(out.tracked.sum()),
+            "matches": int(out.n_matches.sum()),
+            "keyframes": int(out.is_keyframe.sum()),
+            "state_untouched": st.tstate == INIT and st.kf_cursor == 0}
+    detect.launches = 0
+    res["profile_stages"] = profile_stages.profile(16, runs=1)
+    res["profile_scan"] = profile_scan.profile(16, runs=1)
+    res["profilers_k1_launches"] = detect.launches
+    return res
+
+
+def check_knobs(k: dict) -> None:
+    _require(k["orb_k1_launches"] == 4, f"K1 once per profile stage: {k['orb_k1_launches']}")
+    for name in ("stage3_is_full_extract", "stage0_dense_only",
+                 "stages12_zero_descriptors", "use_kernel_0_equals_k1",
+                 "use_kernel_1_equals_k1"):
+        _require(k[name], f"orb_extract knobs: {name}")
+    sl = k["stage_limit"]
+    for lim, r in sl.items():
+        _require(r["state_untouched"] and r["keyframes"] == 0,
+                 f"stage_limit {lim} leaves the map and the state machine: {r}")
+        if lim != 1:
+            _require(r["host_syncs"] == 1, f"stage_limit {lim} reads nothing per "
+                     f"frame: {r['host_syncs']} reads")
+    _require(sl[0]["tracked"] == 48 and sl[0]["matches"] > 0,
+             f"stage_limit 0 records every frame's features: {sl[0]}")
+    # the keyframe cache stays empty, as in the JAX package's profile
+    _require(sl[3]["matches"] == 0 and sl[4]["matches"] == 0,
+             f"stage_limit 3 and 4 match against the empty cache: {sl[3]}, {sl[4]}")
+    _require(all(v > 0 for v in k["profile_stages"].values())
+             and all(v > 0 for v in k["profile_scan"].values()),
+             "the profilers timed every stage")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=240)
@@ -1775,6 +1993,34 @@ def main() -> int:
           f"folded lanes bit for bit; dry run {md['dryrun']['fleet_tracked']}/8 "
           f"tracked ({card})", flush=True)
 
+    # ---- 18. the bench entry, in a process of its own ----
+    bench = run_bench()
+    print("bench " + bench["last_line"] + f" ({card})", flush=True)
+    print("bench detail " + json.dumps(bench["result"]["detail"]) + f" ({card})",
+          flush=True)
+    check_bench(bench)
+    cfg = bench["result"]["detail"]["configs"]
+    print(f"bench: {bench['seconds']:.1f} s; headline {bench['result']['value']} fps; "
+          f"configs 1 {cfg['1_online_scan']['fps']} fps (p50 "
+          f"{cfg['1_online_scan']['latency_ms_p50']} ms), 2 {cfg['2_monocular']['fps']}, "
+          f"2b {cfg['2b_monocular_offline']['fps']}, 3 {cfg['3_long_sequence']['fps']}, "
+          f"4 pair_ba {cfg['4_fullmap_gba']['pair_ba_ms_per_solve']} ms / global_ba "
+          f"{cfg['4_fullmap_gba']['global_ba_ms_per_solve']} ms, 5 "
+          f"{cfg['5_batched_offline']['aggregate_fps']} aggregate fps; "
+          f"{bench['k1_launches']} K1 launches ({card})", flush=True)
+
+    # ---- 19. the roofline report (config 1) ----
+    roof = run_roofline()
+    print("roofline " + json.dumps(roof) + f" ({card})", flush=True)
+    check_roofline(roof)
+    from visionx_slam_torch.tools import roofline as roofline_tool
+    print(roofline_tool.markdown(roof), flush=True)
+
+    # ---- 20. the profiling knobs ----
+    knobs = run_knobs(grays, depths)
+    print("knobs " + json.dumps(knobs) + f" ({card})", flush=True)
+    check_knobs(knobs)
+
     k1["launches"] = scan["k1_launches"]
     k1b["launches"] = scan["k1b_launches"]
     k1["launches_by_path"] = {
@@ -1793,10 +2039,13 @@ def main() -> int:
         "multi_device_fleet": fl["k1_launches"],
         "multi_device_offline": off["k1_launches"],
         "multi_device_dryrun": md["dryrun"]["k1_launches"],
-        "entry": md["entry"]["k1_launches"]}
+        "entry": md["entry"]["k1_launches"],
+        "bench": bench["k1_launches"], "roofline": roof["k1_launches"],
+        "profile_stage": knobs["orb_k1_launches"],
+        "profilers": knobs["profilers_k1_launches"]}
     k1b["launches_by_path"] = {"scan": scan["k1b_launches"]}
 
-    # ---- 18. result ----
+    # ---- 21. result ----
     print(json.dumps({"kernels": [k1, k1b]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,10 @@ same resize mode): keypoint overlap 0.979-0.990 with every descriptor bit
 equal in the default bf16 mode, 0.977-0.987 with bits agreeing >= 0.9997
 in ``resize_f32=1`` (its float32 sums round differently in ~0.05% of the
 pixels).
+
+The profiling knobs: ``profile_stage`` 0-3 against ``orb_jax.orb_extract(
+use_pallas=0, profile_stage=...)`` to the tolerances above, and
+``use_kernel``: 1 raises on the CPU, 0 equals the default there.
 """
 
 import numpy as np
@@ -72,9 +76,9 @@ def port_out(frames):
     return out
 
 
-def _by_position(px, desc, valid):
+def _by_position(px, vals, valid):
     keys = np.round(px[valid] * 64).astype(np.int64)
-    return {tuple(k): d for k, d in zip(keys, desc[valid])}
+    return {tuple(k): d for k, d in zip(keys, vals[valid])}
 
 
 @pytest.mark.parametrize("fi", [0, 1])
@@ -147,3 +151,46 @@ def test_batch_and_slot_layout(frame):
     px_s, _, _, valid_s = OT.orb_extract(g[:1], n_slots=512)
     v = to_np(valid_s[0])
     assert v.all() or not v[np.argmin(v):].any()
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+def test_profile_stage_matches_jax(stage, frame):
+    px_t, resp_t, desc_t, valid_t = (to_np(x[0]) for x in OT.orb_extract(
+        t(frame[None]), profile_stage=stage))
+    px_j, resp_j, desc_j, valid_j = (np.asarray(x) for x in OJ.orb_extract(
+        frame, use_pallas=0, profile_stage=stage))
+    if stage == 0:
+        # dense passes only: zeros, resp[0] the sum of the finite scores
+        # (measured 0.22% apart: scores differ at bf16 rounding ties)
+        for x in (px_t, desc_t, valid_t, resp_t[1:]):
+            assert not x.any()
+        np.testing.assert_allclose(resp_t[0], resp_j[0], rtol=1e-2)
+        return
+    if stage < 3:
+        assert not desc_t.any() and not desc_j.any()
+    # the keypoints of tests/test_torch_orb.py's default mode
+    ref = _by_position(px_j, desc_j if stage == 3 else resp_j, valid_j)
+    mine = _by_position(px_t, desc_t if stage == 3 else resp_t, valid_t)
+    assert valid_t.sum() > 900 and valid_j.sum() > 900
+    shared = [k for k in mine if k in ref]
+    assert len(shared) / len(mine) >= 0.975
+    if stage == 3:
+        bits = np.unpackbits(np.stack([mine[k] for k in shared]) ^
+                             np.stack([ref[k] for k in shared]))
+        assert 1.0 - bits.mean() >= 0.99
+    else:
+        # Harris values at the shared keypoints (measured: 1 of 972 over 1%,
+        # 1.08%); stage 2 adds 0 * sum(angles), so both equal the full
+        # extraction's responses exactly
+        np.testing.assert_allclose([mine[k] for k in shared],
+                                   [ref[k] for k in shared], rtol=2e-2)
+        full = to_np(OT.orb_extract(t(frame[None]), profile_stage=3)[1][0])
+        np.testing.assert_array_equal(resp_t, full)
+
+
+def test_use_kernel(frame):
+    g = t(frame[None])
+    with pytest.raises(ValueError, match="CUDA"):
+        OT.orb_extract(g, use_kernel=1)
+    for a, b in zip(OT.orb_extract(g, use_kernel=0), OT.orb_extract(g)):
+        assert torch.equal(a, b)

@@ -10,7 +10,7 @@ landmark counts are within 10%.
 Also: a run streamed in 8-frame chunks equals one run bit for bit (each
 frame seeds its own generators), the garbage-frame recovery case of
 tests/test_scan_pipeline.py holds for the port, a steady tracked frame
-costs one device read, the stage limits that profile the TPU raise, and the
+costs one device read, and the
 batched scan over two 16-frame sequences (the run above, and its frames in
 reverse order) gives outputs laid out [T, B, ...] whose lane b equals the
 single run of sequence b bit for bit."""
@@ -117,13 +117,6 @@ def test_scan_recovers_from_garbage_frames():
     assert (states[10:14] != TSP.GOOD).any(), states
     assert tracked[-3:].any(), states
     assert states[-1] == TSP.GOOD, states
-
-
-@pytest.mark.parametrize("what", ["stage_limit"])
-def test_unported_paths_raise(what):
-    _, tc = cameras()
-    with pytest.raises(NotImplementedError):
-        TSP.build_scan_step(tc, TrackingOptions(), (640, 480), stage_limit=1)
 
 
 def test_batched_scan_lanes_equal_single_runs(runs):

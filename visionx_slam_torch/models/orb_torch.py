@@ -39,6 +39,7 @@ import math
 import numpy as np
 import torch
 
+from ..ops import detect
 from ..ops.detect import FAST_CIRCLE, NEG, _gaussian_kernel1d, fast_harris_blur
 from ..ops.index import stable_argsort, stable_topk
 
@@ -231,9 +232,20 @@ def orb_extract(
     fast_threshold: float = 20.0,
     border: int = 31,
     resize_f32: int = 0,
+    use_kernel: int = -1,
+    profile_stage: int = 3,
 ):
     """Full ORB: returns (px [B,S,2] level-0 pixels (x, y), resp [B,S],
-    desc [B,S,32] uint8, valid [B,S]) with S = n_slots."""
+    desc [B,S,32] uint8, valid [B,S]) with S = n_slots.
+
+    ``use_kernel`` (the JAX ``use_pallas``): -1 runs the dense passes as
+    ``fast_harris_blur`` does (K1 on a CUDA tensor, its plain version on a
+    CPU tensor), 0 the plain version on either device, 1 K1 (raises on the
+    CPU). ``profile_stage``, a profiling knob as in the JAX package: 0 = the
+    dense passes only (zero outputs but ``resp[:, 0]``, the sum of the
+    finite scores), 1 = + the per-level selection (zero descriptors), 2 = +
+    patches and orientation (zero descriptors; ``resp`` depends on the
+    angles through ``0 * sum``), 3 = the full extraction."""
     B, H, W = gray_u8.shape
     dev = gray_u8.device
     quotas = _level_quotas(n_features, n_levels, scale_factor)
@@ -243,8 +255,24 @@ def orb_extract(
     atlas, mask = build_atlas(gray_u8, scale_factor, n_levels, border, resize_f32)
 
     # ---- dense passes: K1 on the whole chunk ----
-    raw, blurred = fast_harris_blur(atlas, mask, fast_threshold)
+    if use_kernel == 0:
+        with detect.k1_unit(atlas.shape):
+            raw, blurred = detect.fast_harris_blur_reference(atlas, mask,
+                                                             fast_threshold)
+    elif use_kernel == 1 and atlas.device.type != "cuda":
+        raise ValueError(f"use_kernel=1 launches K1, which needs a CUDA tensor, "
+                         f"not {atlas.device}")
+    else:
+        raw, blurred = fast_harris_blur(atlas, mask, fast_threshold)
     score = torch.where(raw > 0.5 * NEG, raw, -math.inf)
+    S = n_slots
+
+    if profile_stage <= 0:
+        resp = torch.zeros((B, S), device=dev)
+        resp[:, 0] = torch.where(torch.isfinite(score), score, 0.0).sum((1, 2))
+        return (torch.zeros((B, S, 2), device=dev), resp,
+                torch.zeros((B, S, 32), dtype=torch.uint8, device=dev),
+                torch.zeros((B, S), dtype=torch.bool, device=dev))
 
     # ---- per-level grid-bucketed top-K: cell argmax, stable top-k ----
     all_yy, all_xx, all_lxy, all_resp = [], [], [], []
@@ -273,6 +301,9 @@ def orb_extract(
     resp = torch.where(valid, top, 0.0)
     xy = torch.cat(all_lxy, 1)
     Q = yy.shape[1]
+    if profile_stage <= 1:
+        return _compact(xy, resp, xy.new_zeros((B, Q, 32), dtype=torch.uint8),
+                        valid, S)
 
     # ---- 31x31 blurred patches by direct gather ----
     # valid keypoints sit >= border px inside their level, so their patches
@@ -287,6 +318,9 @@ def orb_extract(
     # ---- intensity-centroid orientation (f32 accumulation) ----
     m = flat.float() @ wxy                                  # (m10, m01)
     angles = torch.atan2(m[..., 1], m[..., 0])
+    if profile_stage <= 2:
+        return _compact(xy, resp + 0 * angles.sum(-1, keepdim=True),
+                        xy.new_zeros((B, Q, 32), dtype=torch.uint8), valid, S)
 
     # ---- steered BRIEF: exact integer differences of rounded samples ----
     A = BRIEF_BINS
@@ -297,9 +331,13 @@ def orb_extract(
     bits = (va - vb < 0).int().reshape(B, Q, 32, 8)
     weights = 2 ** torch.arange(8, device=dev, dtype=torch.int32)
     desc = (bits * weights).sum(-1).to(torch.uint8)         # LSB first
+    return _compact(xy, resp, desc, valid, S)
 
-    # ---- compact into n_slots (valid first; ordered by level) ----
-    S = n_slots
+
+def _compact(xy, resp, desc, valid, S: int):
+    """The keypoints of [B,Q] slots in ``S`` slots, valid first, ordered by
+    level: (px, resp, desc, valid)."""
+    B, Q = valid.shape
     if Q < S:
         pad = S - Q
         xy = torch.cat([xy, xy.new_zeros(B, pad, 2)], 1)

@@ -11,7 +11,9 @@ intermediate kept in registers:
 - ``blur`` bf16 [B,H,W]: the 7-tap Gaussian blur the BRIEF patches sample.
 
 ``fast_harris_blur`` runs the plain version for a CPU tensor and launches K1
-for a CUDA tensor; there is no fallback between the two. ``fast_harris_score``
+for a CUDA tensor; there is no fallback between the two. Either way it
+records K1's analytic work (``k1_unit``) with ``utils.flops``, so a count
+of a stage holds the same work on both devices. ``fast_harris_score``
 (K1b, counterpart of ``pallas_detect.fast_harris_score``) is the
 detection-only form: one launch of the same kernel compiled without the
 mask and the blur, reading the float32 image and rounding it to bf16 as it
@@ -32,6 +34,8 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..utils import flops
 
 NEG = -3.0e38  # stand-in for -inf that survives f32 arithmetic
 HARRIS_K = 0.04
@@ -142,11 +146,21 @@ def fast_harris_blur(img16: torch.Tensor, mask: torch.Tensor,
         raise ValueError("img16 and mask must be on the same device")
     if not (img16.is_contiguous() and mask.is_contiguous()):
         raise ValueError("img16 and mask must be contiguous")
-    if img16.device.type == "cpu":
-        return fast_harris_blur_reference(img16, mask, threshold)
-    if img16.device.type != "cuda":
+    if img16.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {img16.device}")
+    with k1_unit(img16.shape):
+        if img16.device.type == "cpu":
+            return fast_harris_blur_reference(img16, mask, threshold)
+        return _launch_k1(img16, mask, threshold)
 
+
+def k1_unit(shape):
+    """The ``flops.unit`` of K1 over a batch of atlases of ``shape``."""
+    return flops.unit("fast_harris_blur", flops.k1_ops(shape),
+                      flops.k1_bytes(shape))
+
+
+def _launch_k1(img16: torch.Tensor, mask: torch.Tensor, threshold: float):
     global launches
     B, H, W = img16.shape
     score = torch.empty((B, H, W), dtype=torch.float32, device=img16.device)
@@ -183,22 +197,23 @@ def fast_harris_blur_reference(img16: torch.Tensor, mask: torch.Tensor,
     center = win(x, P - 1, P - 1, H2, W2)
     hi = center + threshold
     lo = center - threshold
-    bright = torch.zeros_like(center, dtype=torch.int64)
-    dark = torch.zeros_like(bright)
-    for i, (dy, dx) in enumerate(FAST_CIRCLE):
-        tap = win(x, P - 1 + int(dy), P - 1 + int(dx), H2, W2)
-        bright |= (tap > hi).long() << i
-        dark |= (tap < lo).long() << i
+    taps = [win(x, P - 1 + int(dy), P - 1 + int(dx), H2, W2)
+            for dy, dx in FAST_CIRCLE]
 
-    def run9(m):
-        r = m | (m << 16)
-        y = r & (r >> 1)
-        y = y & (y >> 2)
-        y = y & (y >> 4)
-        y = y & (r >> 8)
-        return (y & 0xFFFF) != 0
+    def run9(on):
+        """Some 9 contiguous taps of the 16 (around the circle) are on:
+        pairs, then runs of 4, then runs of 8 plus the ninth tap."""
+        n = len(on)
+        pair = [on[i] & on[(i + 1) % n] for i in range(n)]
+        quad = [pair[i] & pair[(i + 2) % n] for i in range(n)]
+        out = None
+        for i in range(n):
+            run = quad[i] & quad[(i + 4) % n] & on[(i + 8) % n]
+            out = run if out is None else out | run
+        return out
 
-    corner2 = run9(bright) | run9(dark)  # [B,H2,W2]
+    corner2 = (run9([tap > hi for tap in taps])
+               | run9([tap < lo for tap in taps]))  # [B,H2,W2]
 
     # ---- Harris over the same region: Sobel over virtual [-4, H+4) ----
     HB, WB = H2 + 6, W2 + 6
@@ -265,11 +280,16 @@ def fast_harris_score(img: torch.Tensor, threshold: float = 20.0) -> torch.Tenso
     CUDA tensor (another float type is cast to float32 first); the plain
     version for a CPU tensor."""
     _check_score_input(img)
-    if img.device.type == "cpu":
-        return fast_harris_score_reference(img, threshold)
-    if img.device.type != "cuda":
+    if img.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {img.device}")
+    with flops.unit("fast_harris_score", flops.k1b_ops(img.shape),
+                    flops.k1b_bytes(img.shape)):
+        if img.device.type == "cpu":
+            return fast_harris_score_reference(img, threshold)
+        return _launch_k1b(img, threshold)
 
+
+def _launch_k1b(img: torch.Tensor, threshold: float) -> torch.Tensor:
     global score_launches
     x = img.to(torch.float32).contiguous()
     B, H, W = (1, *x.shape) if x.dim() == 2 else x.shape

@@ -34,17 +34,11 @@ import numpy as np
 import torch
 
 from ..ops import detect
+from ..utils import flops
 
 # shapes the tiling must get right besides the atlas: odd W; H below one
 # row band and W not a multiple of 8; one row past a band
 EDGE_SHAPES = ((3, 77, 131), (2, 20, 37), (1, 130, 640))
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
-F32_OPS_PER_S = 67e12      # float32 outside the tensor cores, the same sheet
-# arithmetic and compares per output pixel, halo not counted: FAST 34 (two
-# thresholds, 32 compares), Sobel rows 4, gradients and products 9, the three
-# 7x7 box sums 36, Harris 7, NMS 9 (8 max, 1 compare); K1's blur 26
-K1B_OPS_PER_PIXEL = 34 + 4 + 9 + 36 + 7 + 9
-K1_OPS_PER_PIXEL = K1B_OPS_PER_PIXEL + 26
 
 
 def edge_inputs(shape, seed: int):
@@ -168,33 +162,6 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def k1_bytes(shape) -> int:
-    """Least traffic of K1: bf16 image read, int8 mask (shared by the batch)
-    read, f32 score and bf16 blur written."""
-    B, H, W = shape
-    return B * H * W * (2 + 4 + 2) + H * W
-
-
-def k1b_bytes(shape) -> int:
-    """Least traffic of K1b on a float32 image: read 4 B, write 4 B."""
-    B, H, W = shape
-    return B * H * W * 8
-
-
-def k1_ops(shape) -> int:
-    return int(np.prod(shape)) * K1_OPS_PER_PIXEL
-
-
-def k1b_ops(shape) -> int:
-    return int(np.prod(shape)) * K1B_OPS_PER_PIXEL
-
-
-def bound_ms(n_bytes: int) -> float:
-    """The bytes' time at the H100's memory rate; for both kernels it is
-    larger than their arithmetic's time at the float32 rate (k1_ops)."""
-    return n_bytes / HBM_BYTES_PER_S * 1e3
-
-
 def sass_counts(source: Path) -> dict:
     """{kernel: {"F2F": n, "F2FP": n, "instructions": n, "mix": {opcode: n}}}
     from cuobjdump, the mix holding the 12 most frequent opcodes."""
@@ -276,17 +243,18 @@ def main() -> int:
         times[src.name]["k1"].append(
             time_ms(lambda: detect.fast_harris_blur(atlas, mask), args.reps))
         times[src.name]["k1b"].append(time_ms(lambda: k1b(x32), args.reps))
-    b1, b1b = k1_bytes(atlas.shape), k1b_bytes(atlas.shape)
-    o1, o1b = k1_ops(atlas.shape), k1b_ops(atlas.shape)
-    print(f"bound at {tuple(atlas.shape)}: K1 {b1} B -> {bound_ms(b1):.4f} ms "
-          f"(ops {o1 / F32_OPS_PER_S * 1e3:.4f} ms), K1b {b1b} B -> "
-          f"{bound_ms(b1b):.4f} ms (ops {o1b / F32_OPS_PER_S * 1e3:.4f} ms)",
+    b1, b1b = flops.k1_bytes(atlas.shape), flops.k1b_bytes(atlas.shape)
+    o1, o1b = flops.k1_ops(atlas.shape), flops.k1b_ops(atlas.shape)
+    bound1, bound1b = flops.bound_ms(b1, o1), flops.bound_ms(b1b, o1b)
+    print(f"bound at {tuple(atlas.shape)}: K1 {b1} B -> {flops.bound_ms(b1):.4f} ms "
+          f"(ops {flops.bound_ms(0, o1):.4f} ms), K1b {b1b} B -> "
+          f"{flops.bound_ms(b1b):.4f} ms (ops {flops.bound_ms(0, o1b):.4f} ms)",
           flush=True)
     for name, t in times.items():
         k1, k1b = np.mean(t["k1"]), np.mean(t["k1b"])
         print(f"time {name}: K1 {t['k1']} ms (mean {k1:.4f}, "
-              f"{bound_ms(b1) / k1:.3f} of bound), K1b {t['k1b']} ms (mean "
-              f"{k1b:.4f}, {bound_ms(b1b) / k1b:.3f} of bound) ({card})",
+              f"{bound1 / k1:.3f} of bound), K1b {t['k1b']} ms (mean "
+              f"{k1b:.4f}, {bound1b / k1b:.3f} of bound) ({card})",
               flush=True)
     if args.pipeline:
         from ..ops.camera import make_camera

@@ -290,10 +290,19 @@ def build_scan_step(
     over static options; ``inp`` = (frame_id, obs, bits, pop, gray_mean,
     gray_std) of one frame, the last two host floats. The branches are
     exposed as ``step.init_first``, ``step.init_second``,
-    ``step.track_branch`` and ``step.create_keyframe``."""
-    if stage_limit != 2:
-        raise NotImplementedError("only the full pipeline (stage_limit=2) is "
-                                  "ported; the other stage limits profile the TPU")
+    ``step.track_branch`` and ``step.create_keyframe``.
+
+    ``stage_limit`` is a profiling knob, as in the JAX package: 2 = the
+    full pipeline; 0 = extraction only (the step records the frame from
+    its observations); 1 = extraction + ``track_branch`` (only ``cur_pose``
+    is kept: no init, no keyframe, no map growth); 3 = the matcher against
+    the keyframe cache and the distance filter; 4 = 3 + the prior-tier PnP.
+    3 and 4 run a fixed chain of ops with no branch (the map stays empty,
+    so their values are meaningless, but every frame runs the ops of the
+    steady-state chain). Stages 0, 3 and 4 read nothing from the device in
+    the step."""
+    if stage_limit not in (0, 1, 2, 3, 4):
+        raise ValueError(f"stage_limit must be 0-4, got {stage_limit}")
     W_IMG, H_IMG = img_wh
     N = n_features_cap
     K = kf_capacity
@@ -514,8 +523,37 @@ def build_scan_step(
             **_empty_kf_cache(N, st.kf_bits.device))
 
     # ------------------------------------------------------------------
+    def profile_step(st: ScanState, obs: FrameObs, bits, pop, frame_id: int):
+        """The step at ``stage_limit`` 0, 1, 3 or 4."""
+        zero = torch.zeros((), dtype=torch.int32, device=obs.px.device)
+        tracked, n_matches = obs.valid.any(), obs.valid.sum().to(torch.int32)
+        inliers, parallax, st2 = 0, 0.0, st
+        if stage_limit == 1:
+            st1, n_matches, inliers, parallax, tracked, _, _ = track_branch(
+                st, obs, bits, pop, frame_id)
+            st2 = st._replace(cur_pose=st1.cur_pose)
+        elif stage_limit in (3, 4):
+            m = matching.reference_distance_filter(matching.knn2_from_bits(
+                st.kf_bits, st.kf_pop, st.kf_fvalid, bits, pop, obs.valid))
+            n_matches = m.valid.sum().to(torch.int32)
+            if stage_limit == 4:
+                sol = pnp_prior(cam, st.kf_lm_pts, obs.px[m.idx],
+                                m.valid & st.kf_lm_valid, st.cur_pose, thr,
+                                refine_iters=min(2, opts.pnp_refine_iters))
+                inliers = sol.n_inliers
+                st2 = st._replace(cur_pose=Pose(
+                    torch.where(sol.ok, sol.pose.q, st.cur_pose.q),
+                    torch.where(sol.ok, sol.pose.t, st.cur_pose.t)))
+        return st2, FrameRecord(
+            pose=st2.cur_pose, tracked=tracked, state=st.tstate,
+            n_matches=n_matches, n_inliers=inliers, parallax=parallax,
+            is_keyframe=False, n_keyframes=zero, n_landmarks=zero)
+
+    # ------------------------------------------------------------------
     def step(st: ScanState, inp):
         frame_id, obs, bits, pop, gray_mean, gray_std = inp
+        if stage_limit != 2:
+            return profile_step(st, obs, bits, pop, frame_id)
         was = st.tstate
         was_init_first = was == INIT and not st.have_init
         was_init_second = was == INIT and st.have_init
@@ -653,6 +691,9 @@ def _scan_frames(step, st: ScanState, frame0: int, obs: FrameObs, bits, pop,
 
 def _frame_out(recs: list, dev) -> FrameOut:
     def host(vals, dtype):
+        # host values, or device scalars where the step read nothing
+        if isinstance(vals[0], torch.Tensor):
+            return torch.stack(vals).to(dtype)
         return torch.tensor(vals, dtype=dtype).to(dev)
 
     return FrameOut(

@@ -5,10 +5,15 @@ pyramid atlas built on the card against the one built on the CPU, then
 drives the port's paths over a 240-frame 640x480 synthetic sequence (bench
 input: scene seed 5) and checks their accuracy: the RGB-D offline
 pipeline; the online scan (per-frame tracking, keyframes, local BA) as one
-run, streamed in 8-frame chunks, with a depth hole (the left 200 columns:
-triangulated landmarks, so local BA iterates), and over the sequence tiled
-three times (720 frames: the keyframe ring wraps and the landmark table is
-compacted at full capacity); the offline pipeline over 8 folded lanes of
+run, streamed in 8-frame chunks, and with a depth hole (the left 200
+columns: triangulated landmarks, so local BA iterates); the long-stress
+tool (``tools/long_stress.py``): the sequence tiled on the card to 2160
+frames (the keyframe ring wraps, the landmark table is compacted at full
+capacity, no landmark may be dropped), then split at frame 1200 and
+resumed from the carried scan state; the real-data tool's
+sensor-degradation matrix (``tools/real_data_check.py``: the scan over 120
+frames clean, under each of five sensor models and under all combined);
+the offline pipeline over 8 folded lanes of
 120 frames (BASELINE config 5); the monocular offline pipeline over the
 sequence tiled four times at stride 4 (config 2b), and on that input with
 the monocular loop closure (the scale re-anchoring at revisits; with the
@@ -27,7 +32,8 @@ normal entry point: the sequence written to a temporary TUM-layout
 directory, decoded back (bit-equal to the rendered arrays) and mapped by
 ``visionx_slam_torch.cli.main.entrypoint`` through ``--pipeline scan``
 (with the full-map global BA), ``offline`` and ``host``, and stopped at a
-snapshot and resumed, the output files read back; and the multi-device
+snapshot and resumed, the output files read back, and the real-data
+tool's ``--dataset_dir`` mode over that directory; and the multi-device
 module in a world of one under ``nccl``: ``entry``'s forward, one fused
 SLAM step over a fleet of 8 lanes built from the first 9 frames on disk,
 the sharded offline pipeline over config 5's lanes (bit for bit the folded
@@ -244,15 +250,11 @@ def run_pipeline(grays, depths, gt_t) -> dict:
 # The JAX package's scan on the same inputs, on the CPU (TrackingOptions(),
 # 1024 slots, kf_capacity 64, lm_capacity 1 << 17; PERF.md): 240 frames
 # tracked 240/240 at ATE 4.4578 mm with 77 keyframe events; the sequence
-# tiled five times (1200 frames) tracked 1200/1200 at ATE 16.2077 mm.
+# tiled five times (1200 frames, the bench's config 3) tracked 1200/1200 at
+# ATE 16.2077 mm.
 SCAN_ATE_JAX = 0.004458
 SCAN_KF_JAX = 77
 LONG_ATE_JAX = 0.016208
-# tiles of the sequence in the long scan phase: 3 (720 frames) still wraps
-# the 64-slot ring and compacts the landmark table; the bench phase runs
-# BASELINE config 3 itself at 5 tiles (1200 frames) and is held to
-# LONG_ATE_JAX
-LONG_REPS = 3
 # With no depth in the left 200 columns, the JAX scan on the CPU: 240/240
 # tracked at ATE 10.8675 mm, 77 keyframe events, 57,999 landmarks.
 HOLE_COLS = 200
@@ -589,6 +591,30 @@ CULL_KEEP_FINAL_LM_JAX = 3000
 CULL_KEEP_KF_REMOVED_JAX = 61
 GBA_ITERS, GBA_CG = 2, 12     # bench.py config 4
 
+# The long-stress tool and the degradation matrix of the JAX package, on
+# the CPU (``JAX_PLATFORMS=cpu python3 tools/port_jax_references.py
+# --configs long_stress degrade``, PERF.md, PR 10). Stress: the 240-frame
+# loop tiled 9 times, TrackingOptions(), 64 keyframe slots, 1 << 17
+# landmarks: 2160/2160 tracked at ATE 28.7953 mm, 693 keyframe events,
+# landmarks peak 129,000 and final 109,000, lm_dropped 0; split at frame
+# 1200: the largest pose difference from the single run 0.0. The three
+# sizes are the ones that tool fixes under the same names.
+STRESS_FRAMES = 2160
+STRESS_SPLIT = 1200
+LONG_STRESS_ATE_JAX = 0.028795
+# Degradation: the scan over the first 120 frames, each row (name, tracked
+# share, rigid ATE in m) with np.random.default_rng(7).
+DEGRADE_FRAMES = 120
+DEGRADE_JAX = (
+    ("clean", 1.0, 0.004449),
+    ("depth_quantized", 1.0, 0.004449),
+    ("depth_holes", 1.0, 0.005275),
+    ("depth_noise", 1.0, 0.005151),
+    ("exposure_jitter", 1.0, 0.005689),
+    ("motion_blur", 1.0, 0.005419),
+    ("all_combined", 1.0, 0.005840),
+)
+
 
 def _scan(cam, g, d, stats=None, st0=None, frame0=0, opts=None):
     from visionx_slam_torch.tracking.scan_pipeline import run_scan_pipeline
@@ -724,24 +750,108 @@ def run_hole_scan(grays, depths, gt_t) -> dict:
     return res
 
 
-def run_long_scan(grays, depths, gt_t, reps: int) -> dict:
-    """The scan over the sequence tiled ``reps`` times."""
-    import numpy as np
+def run_stress(grays, depths, gt_t) -> dict:
+    """The long-stress tool over the sequence tiled to ``STRESS_FRAMES``
+    frames on the card, then split at ``STRESS_SPLIT`` (see the module
+    docstring of ``visionx_slam_torch.tools.long_stress``)."""
     import torch
 
+    from visionx_slam_torch.tools import long_stress
+    from visionx_slam_torch.utils.config import TrackingOptions
 
-    cam = _camera()
-    g = torch.as_tensor(np.tile(grays, (reps, 1, 1))).cuda()
-    d = torch.as_tensor(np.tile(depths, (reps, 1, 1))).cuda()
-    gt = np.tile(gt_t, (reps, 1))
-    stats: dict = {}
-    torch.cuda.synchronize()
+    reps = -(-STRESS_FRAMES // len(grays))
+    r = long_stress.stress(_camera(), grays, depths, gt_t, reps, STRESS_SPLIT,
+                           TrackingOptions(), "cuda")
+    # the 3.3 GB of tiled frames and the runs' outputs are gone with the
+    # function's frame; hand their blocks back before the next phase
+    torch.cuda.empty_cache()
+    return r
+
+
+def check_stress(r: dict, T0: int) -> None:
+    """PERF.md Section 2's limits of the stress phase."""
+    T, s = r["frames"], r["split"]
+    _require(r["tracked"] >= 0.99 * T and r["lm_dropped"] == 0 and r["ok"],
+             f"stress gate: tracked {r['tracked']}/{T}, lm_dropped {r['lm_dropped']}")
+    _require(r["keyframe_events"] > 64, "the keyframe ring wrapped")
+    _require(r["compactions"] >= 1, "landmark compaction ran")
+    _require(s["max_pose_diff"] < s["bound"],
+             f"the split at {s['at']} within {s['bound']} of the single run: "
+             f"{s['max_pose_diff']}")
+    _require(r["k1_launches"] == -(-T // 8)
+             and s["k1_launches"] == [-(-s["at"] // 8), -(-(T - s["at"]) // 8)],
+             f"K1 once per 8-frame chunk of each call: {r['k1_launches']}, "
+             f"{s['k1_launches']}")
+    if T0 == 240:
+        _require(T == STRESS_FRAMES and r["ate_m"] is not None
+                 and r["ate_m"] <= 2 * LONG_STRESS_ATE_JAX,
+                 f"stress ATE {r['ate_m']} m <= 2 x {LONG_STRESS_ATE_JAX} m")
+
+
+def run_degradation(grays, depths, gt_t) -> list:
+    """The sensor-degradation matrix of the real-data tool over the first
+    ``DEGRADE_FRAMES`` frames."""
+    from visionx_slam_torch.tools import real_data_check
+    from visionx_slam_torch.utils.config import TrackingOptions
+
+    n = DEGRADE_FRAMES
+    return real_data_check.degradation_matrix(
+        _camera(), grays[:n], depths[:n], gt_t[:n], TrackingOptions(), "cuda")
+
+
+def check_degradation(rows: list) -> float:
+    """Every row in the JAX tool's band, K1 once per 8 frames; at the bench
+    input, every row within 0.05 of the JAX row's tracked share and at most
+    max(2 x its ATE, 20 mm). Returns the band's ATE bound."""
+    from visionx_slam_torch.tools import real_data_check
+
+    ok, band = real_data_check.in_band(rows)
+    _require(ok, f"every degradation row in the band (ATE <= {band} m): {rows}")
+    for r in rows:
+        _require(r["k1_launches"] == -(-r["frames"] // 8),
+                 f"{r['name']}: {r['k1_launches']} K1 launches")
+    if rows[0]["frames"] == DEGRADE_FRAMES:     # the JAX rows' input
+        _require([r["name"] for r in rows] == [n for n, _, _ in DEGRADE_JAX],
+                 "the rows in the JAX tool's order")
+        for r, (name, share, ate) in zip(rows, DEGRADE_JAX):
+            _require(abs(r["tracked_share"] - share) <= 0.05
+                     and r["ate_m"] <= max(2 * ate, 0.020),
+                     f"{name}: tracked {r['tracked_share']} vs JAX {share}, ATE "
+                     f"{r['ate_m']} m vs JAX {ate} m")
+    return band
+
+
+def run_real_data(root: str) -> dict:
+    """The real-data tool's ``--dataset_dir`` mode over the TUM-layout
+    directory the system phase wrote, through the scan, ``DEGRADE_FRAMES``
+    frames."""
+    from visionx_slam_torch.ops import detect
+    from visionx_slam_torch.tools import real_data_check
+
+    detect.launches = 0
     t0 = time.perf_counter()
-    _, out = _scan(cam, g, d, stats)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    return {"frames": len(gt), "seconds": wall, "fps": len(gt) / wall,
-            **_scan_metrics(out, gt), **stats}
+    s = real_data_check.run_real(root, SEQUENCE, os.path.join(root, "out_real"),
+                                 "scan", DEGRADE_FRAMES, "cuda")
+    return {"seconds": time.perf_counter() - t0, "k1_launches": detect.launches,
+            **{k: s.get(k) for k in ("n_frames", "n_tracked", "ate_rmse",
+                                     "rpe_trans_rmse", "n_keyframes", "n_landmarks",
+                                     "loader", "device", "scan_fps")}}
+
+
+def check_real_data(real: dict, clean: dict) -> None:
+    """On the card, >= 95% tracked, ATE <= 2 x the in-memory scan's over the
+    same frames (the degradation phase's clean row), the loader named, K1
+    once per 8 frames."""
+    _require(real["device"] == "cuda" and real["n_frames"] == DEGRADE_FRAMES
+             and real["n_tracked"] >= 0.95 * DEGRADE_FRAMES,
+             f"real data: tracked {real['n_tracked']}/{real['n_frames']} on the card")
+    _require(real["ate_rmse"] <= 2 * clean["ate_m"],
+             f"real data ATE {real['ate_rmse']} m <= 2 x the in-memory scan's "
+             f"{clean['ate_m']} m over the same frames")
+    _require(real["loader"] in ("native", "python")
+             and real["k1_launches"] == -(-DEGRADE_FRAMES // 8),
+             f"real data: loader {real['loader']}, {real['k1_launches']} K1 launches")
+
 
 def _median_ms(fn, reps: int = 7) -> float:
     """Median over ``reps`` warm calls of ``fn``, each timed by CUDA events."""
@@ -1573,6 +1683,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=240)
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
@@ -1655,15 +1766,21 @@ def main() -> int:
         _require(lo <= hole["landmarks"] <= hi,
                  f"hole landmarks {hole['landmarks']} in [{lo}, {hi}]")
 
-    # ---- 7. the long scan: ring wrap and compaction ----
-    long = run_long_scan(grays, depths, gt_t, LONG_REPS)
-    print("long scan " + json.dumps(long) + f" ({card})", flush=True)
-    TL = long["frames"]
-    _require(long["tracked"] >= int(0.95 * TL), f"long tracked {long['tracked']}/{TL}")
-    _require(long["keyframe_events"] > 64, "the keyframe ring wrapped")
-    _require(long["compactions"] >= 1, "landmark compaction ran")
-    _require(long["ate_m"] is not None and long["ate_m"] <= 2 * LONG_ATE_JAX,
-             f"long ATE {long['ate_m']} m <= {2 * LONG_ATE_JAX} m")
+    # ---- 7. the long-stress tool: 2160 frames, ring wrap, compaction,
+    # no landmark dropped, split at 1200 ----
+    stress = run_stress(grays, depths, gt_t)
+    print("stress " + json.dumps(stress) + f" ({card})", flush=True)
+    check_stress(stress, T)
+    from visionx_slam_torch.tools import long_stress
+    print(long_stress.summary(stress) + f" ({card})", flush=True)
+
+    # ---- 7b. the sensor-degradation matrix (the real-data tool) ----
+    degr = run_degradation(grays, depths, gt_t)
+    band = check_degradation(degr)
+    from visionx_slam_torch.tools import real_data_check
+    print(real_data_check.table(degr, band), flush=True)
+    for r in degr:
+        print("degradation " + json.dumps(r) + f" ({card})", flush=True)
 
     # ---- 8. folded lanes (BASELINE config 5) ----
     lanes = run_lanes(grays, depths, gt_t)
@@ -1978,6 +2095,15 @@ def main() -> int:
           f"{s_host['host_reads_per_frame']:.2f} device reads per frame, "
           f"{s_host['k1_launches']} K1 launches ({card})", flush=True)
 
+    # ---- 16b. the real-data tool on the directory above (synthetic) ----
+    real = run_real_data(seq_root.name)
+    print("real data " + json.dumps(real) + f" ({card})", flush=True)
+    check_real_data(real, degr[0])
+    print(f"REAL DATA: tracked {real['n_tracked']}/{real['n_frames']}, ATE "
+          f"{real['ate_rmse']:.4f} m, RPE {real['rpe_trans_rmse']:.4f} m, "
+          f"{real['n_keyframes']} keyframes, {real['n_landmarks']} landmarks, "
+          f"loader {real['loader']} ({card})", flush=True)
+
     # ---- 17. the multi-device module, a world of one under nccl ----
     try:
         md = run_multi_device(seq_root.name, lanes_data)
@@ -2025,7 +2151,11 @@ def main() -> int:
     k1b["launches"] = scan["k1b_launches"]
     k1["launches_by_path"] = {
         "offline": res["k1_launches"], "scan": scan["k1_launches"],
-        "hole_scan": hole["k1_launches"], "lanes": lanes["k1_launches"],
+        "hole_scan": hole["k1_launches"],
+        "stress": stress["k1_launches"],
+        "stress_split": sum(stress["split"]["k1_launches"]),
+        "degradation": sum(r["k1_launches"] for r in degr),
+        "real_data": real["k1_launches"], "lanes": lanes["k1_launches"],
         "mono_offline": mono["k1_launches"], "mono_scan": mscan["k1_launches"],
         "mono_loop_scale": ls["k1_launches"], "mono_loop_merge": lm["k1_launches"],
         "mono_loop_folded": lf["k1_launches"],
@@ -2046,6 +2176,8 @@ def main() -> int:
     k1b["launches_by_path"] = {"scan": scan["k1b_launches"]}
 
     # ---- 21. result ----
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s "
+          f"({card})", flush=True)
     print(json.dumps({"kernels": [k1, k1b]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

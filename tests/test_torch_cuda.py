@@ -5,7 +5,8 @@ offline pipeline (one lane, two folded lanes, monocular), global BA, the
 pairwise solver ``pair_ba`` (also: equal bits between two runs), the scan
 with map culling, and the online scan: with depth holes (triangulation, local BA and compaction
 run), through a blackout (reset and re-initialization), and with the
-monocular option set (essential init, inherited landmarks).
+monocular option set (essential init, inherited landmarks); and the
+long-stress tool's function, tiled on the card and split in two.
 
 On CUDA the solvers' float sums add in a fixed order
 (``ops.index.segment_sum``), so ``global_ba`` repeats bit for bit on the
@@ -312,3 +313,25 @@ def test_mono_offline_on_cuda(cuda):
     ate_g, _ = ate_of_run(og.pose.cpu().numpy(), tr_g, gt, with_scale=True)
     ate_c, _ = ate_of_run(oc.pose.numpy(), tr_c, gt, with_scale=True)
     assert ate_g < 0.3 and ate_c < 0.3, (ate_g, ate_c)
+
+
+def test_long_stress_on_cuda(cuda):
+    """The long-stress tool's function at a small size on the card: the
+    bench loop at a stride of 12 (20 frames) tiled twice on the device, a
+    4-slot ring and a 7168-landmark table, split at frame 16 (a multiple of
+    the 8-frame extraction chunk, so both calls build the single run's atlas
+    batches): the gate passes, the split is within the tool's bound, K1
+    launches once per chunk of each call, the peak memory is reported."""
+    from visionx_slam_torch.tools import long_stress
+
+    grays, depths, gt = sequence(20, 5, 20)
+    cam = make_camera(synthetic.FX, synthetic.FY, synthetic.CX, synthetic.CY)
+    r = long_stress.stress(cam, grays, depths, gt, 2, 16,
+                           TrackingOptions(ba_window_size=4), cuda,
+                           kf_capacity=4, lm_capacity=7168)
+    assert r["ok"] and r["frames"] == 40 and r["lm_dropped"] == 0
+    assert r["keyframe_events"] > 4 and r["compactions"] >= 1
+    assert r["ate_m"] < 0.05, r["ate_m"]
+    assert r["split"]["max_pose_diff"] < long_stress.SPLIT_BOUND, r["split"]
+    assert r["k1_launches"] == 5 and r["split"]["k1_launches"] == [2, 3]
+    assert r["peak_memory_bytes"] > 0

@@ -5,8 +5,8 @@ monocular loop closure), the online
 scan (plain, with culling, batched, archived with the full-map global BA,
 resumed from a snapshot), ``pair_ba``, the ``System`` class on a
 sequence it wrote to disk (``scan``, ``offline`` and ``host``), the
-multi-device step on a world of one and ``entry``'s forward run end to
-end — and its in-memory sequence is bit-for-bit the one the bench loads
+multi-device step on a world of one, ``entry``'s forward and the two
+tools ``long_stress`` and ``real_data_check`` run end to end — and its in-memory sequence is bit-for-bit the one the bench loads
 from PNGs."""
 
 import os
@@ -103,6 +103,13 @@ with tempfile.TemporaryDirectory() as tmp:
         summary = system.System(cfg).run()
         assert summary["n_tracked"] == 4 and summary["ate_rmse"] < 0.02, summary
         assert os.path.isfile(os.path.join(tmp, pipeline, "map.ply"))
+    from visionx_slam_torch.tools import long_stress, real_data_check
+    s = real_data_check.run_real(tmp, seq, os.path.join(tmp, "real"), "scan", 4, "cpu")
+    assert s["n_tracked"] == 4 and s["loader"] in ("native", "python"), s
+r = long_stress.stress(cam, g, d, gt, 2, 3, TrackingOptions(), "cpu", **kw)
+assert r["ok"] and r["split"]["bit_equal"], r
+row = real_data_check.scan_row(cam, "clean", g, d, gt, TrackingOptions(), "cpu")
+assert row["tracked"] == 4, row
 from visionx_slam_torch import entry
 from visionx_slam_torch.models.local_ba import BAOptions
 from visionx_slam_torch.parallel import batch as pb

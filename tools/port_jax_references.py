@@ -41,10 +41,22 @@ constants).
   ground-truth motion; then the tiny dry run of ``__graft_entry__.py`` on a
   world of one (the correlated fleet's step totals, the sharded offline
   pipeline's tracked, keyframes, landmarks and ATE); chip_smoke.py's
-  ``FLEET_*_JAX`` and ``DRYRUN_*_JAX``.
+  ``FLEET_*_JAX`` and ``DRYRUN_*_JAX``;
+- long_stress: ``tools/long_stress.py --frames 2160 --resume-split 1200``:
+  the 240-frame loop tiled 9 times, one scan with ``TrackingOptions()``
+  (64-slot ring, 1 << 17 landmarks); tracked, rigid ATE, keyframe events,
+  the final keyframes, the landmark peak and final count, the map's
+  ``lm_dropped``; then the same frames as two calls split at 1200 (the
+  first call's final state carried as ``st0``) and the largest pose
+  difference from the single run; chip_smoke.py's ``LONG_STRESS_*_JAX``;
+- degrade: ``tools/real_data_check.py``'s sensor-degradation matrix over
+  the first 120 frames: the scan clean, under each model of
+  ``data/degrade.py::DEGRADATIONS`` and under all of them combined, each
+  row with ``np.random.default_rng(7)``; tracked and rigid ATE per row;
+  chip_smoke.py's ``DEGRADE_JAX``.
 
 Run from the repository root:
-``JAX_PLATFORMS=cpu python3 tools/port_jax_references.py [--configs 5 2b 2b_loop 2b_merge 2 cull cull_keep host fleet]``.
+``JAX_PLATFORMS=cpu python3 tools/port_jax_references.py [--configs 5 2b 2b_loop 2b_merge 2 cull cull_keep host fleet long_stress degrade]``.
 Prints one JSON line per config.
 """
 
@@ -258,6 +270,68 @@ def config_fleet() -> dict:
     return res
 
 
+# The sizes of the long_stress and degrade references: chip_smoke.py's
+# STRESS_FRAMES, STRESS_SPLIT and DEGRADE_FRAMES, which its LONG_STRESS_*_JAX
+# and DEGRADE_JAX constants were made at.
+STRESS_FRAMES = 2160
+STRESS_SPLIT = 1200
+DEGRADE_FRAMES = 120
+
+
+def config_long_stress(cam, opts, grays, depths, gts) -> dict:
+    import jax.numpy as jnp
+
+    from visionx_slam_tpu.tracking import mapstate as msl
+    from visionx_slam_tpu.tracking.scan_pipeline import run_scan_pipeline
+
+    frames, split = STRESS_FRAMES, STRESS_SPLIT
+    reps = -(-frames // len(grays))
+    gd = jnp.tile(jnp.asarray(grays), (reps, 1, 1))
+    dd = jnp.tile(jnp.asarray(depths), (reps, 1, 1))
+    gt = np.tile(gts, (reps, 1))
+    st, out = run_scan_pipeline(cam, gd, dd, opts)
+    tr = np.asarray(out.tracked)
+    poses = np.asarray(out.pose)
+    nl = np.asarray(out.n_landmarks)
+    res = {"config": "long_stress", "frames": len(tr), "tracked": int(tr.sum()),
+           "ate_m": _ate(poses, tr, gt, False),
+           "keyframe_events": int(np.asarray(out.is_keyframe).sum()),
+           "keyframes": int(np.asarray(out.n_keyframes)[-1]),
+           "landmarks_final": int(nl[-1]), "landmarks_peak": int(nl.max()),
+           "map_keyframes": int(msl.n_keyframes(st.ms)),
+           "map_landmarks": int(msl.n_landmarks(st.ms)),
+           "lm_dropped": int(st.ms.lm_dropped)}
+    del st, out
+    st1, o1 = run_scan_pipeline(cam, gd[:split], dd[:split], opts)
+    p1 = np.asarray(o1.pose)
+    _, o2 = run_scan_pipeline(cam, gd[split:], dd[split:], opts,
+                              st0=st1, frame0=split)
+    dp = np.abs(np.concatenate([p1, np.asarray(o2.pose)]) - poses).max()
+    res.update(split=split, split_max_pose_diff=float(dp))
+    return res
+
+
+def config_degrade(cam, opts, grays, depths, gts) -> dict:
+    from visionx_slam_tpu.data import degrade
+    from visionx_slam_tpu.tracking.scan_pipeline import run_scan_pipeline
+
+    frames = DEGRADE_FRAMES
+    g0, d0, gt = grays[:frames], depths[:frames], gts[:frames]
+    inputs = [("clean", g0, d0)]
+    for name, fn in degrade.DEGRADATIONS.items():
+        inputs.append((name, *fn(g0, d0, np.random.default_rng(7))))
+    inputs.append(("all_combined",
+                   *degrade.degrade_all(g0, d0, np.random.default_rng(7))))
+    rows = []
+    for name, g, d in inputs:
+        _, out = run_scan_pipeline(cam, g, d, opts)
+        tr = np.asarray(out.tracked)
+        rows.append({"name": name, "tracked": int(tr.sum()),
+                     "tracked_share": float(tr.mean()),
+                     "ate_m": _ate(out.pose, tr, gt, False)})
+    return {"config": "degrade", "frames": frames, "rows": rows}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--configs", nargs="+", default=["5", "2b", "2"])
@@ -285,7 +359,10 @@ def main() -> int:
             "host": lambda: config_host(args.host_frames),
             "fleet": config_fleet,
             "cull_keep": lambda: config_cull(cam, opts, grays, depths, gts,
-                                             "cull_keep", **CULL_KEEP)}
+                                             "cull_keep", **CULL_KEEP),
+            "long_stress": lambda: config_long_stress(cam, opts, grays,
+                                                      depths, gts),
+            "degrade": lambda: config_degrade(cam, opts, grays, depths, gts)}
     for c in args.configs:
         t0 = time.perf_counter()
         res = runs[c]()

@@ -90,11 +90,12 @@ def _median_stats(times, n_frames):
     }
 
 
-def _device(name: str) -> torch.device:
+def require_device(name) -> torch.device:
+    """``name`` as a device; raises for "cuda" where there is no card (a
+    measurement does not fall back to the CPU)."""
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the bench measures the card "
-                           "(pass --device cpu for a CPU smoke run)")
+        raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
     return dev
 
 
@@ -331,7 +332,7 @@ def main(argv=None) -> int:
     if args.pipeline == "host" or args.extractor == "opencv":
         return bench_host(args)
 
-    dev = _device(args.device)
+    dev = require_device(args.device)
     n_frames = args.frames or (20 if args.quick else 240)
     runs = max(2, args.runs if not args.quick else 2)
     grays, depths, gts = synthetic.make_sequence(n_frames, seed=5)
@@ -400,7 +401,7 @@ def main(argv=None) -> int:
 def bench_host(args) -> int:
     """Host-pipeline / opencv-extractor variant through ``System``, on the
     sequence written as PNGs to a temporary directory."""
-    dev = _device(args.device)
+    dev = require_device(args.device)
     n_frames = args.frames or (20 if args.quick else 240)
     seq = "rgbd_dataset_freiburg3_synthetic"
     with tempfile.TemporaryDirectory(prefix="vxs_bench_") as root:
@@ -436,7 +437,7 @@ def bench_batched(args) -> int:
     sequences (scene seeds 100, 101, ...) mapped together; the metric is
     aggregate frames/sec. The offline pipeline folds them into lanes;
     ``--pipeline scan`` measures the batched scan instead."""
-    dev = _device(args.device)
+    dev = require_device(args.device)
     B = args.batch
     T = args.frames or (20 if args.quick else 120)
     runs = max(2, args.runs if not args.quick else 2)

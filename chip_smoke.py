@@ -4,8 +4,10 @@ PyTorch versions (at the rendered 8-frame atlas and at edge shapes) and the
 pyramid atlas built on the card against the one built on the CPU, then
 drives the port's paths over a 240-frame 640x480 synthetic sequence (bench
 input: scene seed 5) and checks their accuracy: the RGB-D offline
-pipeline; the online scan (per-frame tracking, keyframes, local BA) as one
-run, streamed in 8-frame chunks, and with a depth hole (the left 200
+pipeline (and ``match_frames_batched`` over 8 consecutive pairs of its
+frames, bit for bit the per-pair loop); the online scan (per-frame
+tracking, keyframes, local BA) as one run, streamed in 8-frame chunks,
+and with a depth hole (the left 200
 columns: triangulated landmarks, so local BA iterates); the long-stress
 tool (``tools/long_stress.py``): the sequence tiled on the card to 2160
 frames (the keyframe ring wraps, the landmark table is compacted at full
@@ -31,7 +33,9 @@ the batched scan over config 5's 8 windows, against 8 single runs; and the
 normal entry point: the sequence written to a temporary TUM-layout
 directory, decoded back (bit-equal to the rendered arrays) and mapped by
 ``visionx_slam_torch.cli.main.entrypoint`` through ``--pipeline scan``
-(with the full-map global BA), ``offline`` and ``host``, and stopped at a
+(with the full-map global BA), ``offline`` (its ``System`` run bit for bit
+the in-memory pipeline at the same 128 keyframe slots; the pipeline at 88
+slots printed beside it) and ``host``, and stopped at a
 snapshot and resumed, the output files read back, and the real-data
 tool's ``--dataset_dir`` mode over that directory; and the multi-device
 module in a world of one under ``nccl``: ``entry``'s forward, one fused
@@ -244,7 +248,25 @@ def run_pipeline(grays, depths, gt_t) -> dict:
     return {"frames": T, "seconds": wall, "fps": T / wall, "ate_m": ate,
             "tracked": n_tracked, "keyframes": int(out.n_keyframes),
             "landmarks": int(out.n_landmarks), "k1_launches": launches,
-            "stage_seconds": stage_s}
+            "stage_seconds": stage_s, "batched_matching": check_batched_matching(g),
+            "_pose": pose, "_tracked": tracked}
+
+
+def check_batched_matching(g) -> dict:
+    """``match_frames_batched`` over 8 consecutive pairs of the frames'
+    1024 ORB slots against the loop of single-pair ``match_frames``."""
+    import torch
+
+    from visionx_slam_torch.models import matching, orb_torch
+
+    _, _, desc, fvalid = orb_torch.orb_extract(g[:9])
+    batched = matching.match_frames_batched(desc[:8], fvalid[:8], desc[1:], fvalid[1:])
+    loop = [matching.match_frames(desc[i], fvalid[i], desc[i + 1], fvalid[i + 1])
+            for i in range(8)]
+    equal = all(torch.equal(getattr(batched, f)[i], getattr(loop[i], f))
+                for i in range(8) for f in batched._fields)
+    return {"pairs": 8, "slots": int(desc.shape[1]),
+            "matches": int(batched.valid.sum()), "equal_to_loop": equal}
 
 
 # The JAX package's scan on the same inputs, on the CPU (TrackingOptions(),
@@ -1171,22 +1193,31 @@ def host_environment() -> dict:
     return env
 
 
-def _cli(dataset_dir: str, out: str, *flags: str) -> dict:
+def _cli(dataset_dir: str, out: str, *flags: str, keep_poses: bool = False) -> dict:
     """One call of the port's command line; returns metrics.json, with the
-    K1 launches of the call and its wall seconds."""
+    K1 launches of the call and its wall seconds. ``keep_poses``: run the
+    command line's ``System`` directly on its parsed flags and add its
+    per-frame poses and tracked flags (``_pose``, ``_tracked``)."""
+    import numpy as np
     import torch
 
-    from visionx_slam_torch.cli.main import entrypoint
+    from visionx_slam_torch.cli.main import entrypoint, parse_config
     from visionx_slam_torch.ops import detect
+    from visionx_slam_torch.system.system import System
 
+    argv = ["--dataset_dir", dataset_dir, "--sequence", SEQUENCE,
+            "--output_dir", out, *flags]
     detect.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rc = entrypoint(["--dataset_dir", dataset_dir, "--sequence", SEQUENCE,
-                     "--output_dir", out, *flags])
+    if keep_poses:
+        system = System(parse_config(argv))
+        system.run()
+    else:
+        rc = entrypoint(argv)
+        _require(rc == 0, f"the command line returned {rc}")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    _require(rc == 0, f"the command line returned {rc}")
     for name in ("trajectory.txt", "metrics.json", "map_snapshot.npz", "map.ply"):
         _require(os.path.isfile(os.path.join(out, name)), f"{out} holds {name}")
     with open(os.path.join(out, "metrics.json")) as f:
@@ -1202,23 +1233,50 @@ def _cli(dataset_dir: str, out: str, *flags: str) -> dict:
         metrics["keyframe_flags"] = sum(r["is_keyframe"] for r in recs)
     metrics["k1_launches"] = detect.launches
     metrics["cli_seconds"] = wall
+    if keep_poses:
+        metrics["_tracked"] = np.array([r.pose_T_cw is not None for r in system.results])
+        metrics["_pose"] = np.stack([np.eye(4, dtype=np.float32) if r.pose_T_cw is None
+                                     else r.pose_T_cw for r in system.results])
     return metrics
 
 
 def _brief(m: dict) -> dict:
-    keep = ("n_frames", "n_tracked", "n_keyframes", "n_landmarks", "ate_rmse",
-            "rpe_trans_rmse", "rpe_rot_rmse", "fps", "scan_fps", "scan_time_s",
-            "decode_time_s", "wall_time_s", "cli_seconds", "loader", "device",
-            "k1_launches", "host_reads_per_frame", "global_ba", "scan_stats",
-            "keyframe_flags")
+    keep = ("_pose", "_tracked", "n_frames", "n_tracked", "n_keyframes",
+            "n_landmarks", "ate_rmse", "rpe_trans_rmse", "rpe_rot_rmse", "fps",
+            "scan_fps", "scan_time_s", "decode_time_s", "wall_time_s",
+            "cli_seconds", "loader", "device", "k1_launches",
+            "host_reads_per_frame", "global_ba", "scan_stats", "keyframe_flags")
     out = {k: m[k] for k in keep if k in m}
     out["stage_seconds"] = {k: v["total_s"] for k, v in m["stage_timings"].items()}
     return out
 
 
-def run_system(root: str, grays, depths, gt_t) -> dict:
+def offline_capacity_spread(grays, depths, gt_t, pose128, tracked128) -> dict:
+    """The offline pipeline at 88 keyframe slots (what ``System`` used to
+    size for 240 frames) against the in-memory run at the default 128: the
+    padded capacity changes the order of the solvers' sums, so the map
+    moves with it (in the JAX package too)."""
+    import numpy as np
+
+    from visionx_slam_torch.eval.trajectory import ate_of_run
+    from visionx_slam_torch.tracking.offline_pipeline import run_offline_pipeline
+    from visionx_slam_torch.utils.config import TrackingOptions
+
+    _, out = run_offline_pipeline(_camera(), grays, depths, TrackingOptions(),
+                                  device="cuda", kf_capacity=88)
+    pose = out.pose.cpu().numpy()
+    ate, n_tracked = ate_of_run(pose, out.tracked.cpu().numpy(), gt_t)
+    ate128, n_tracked128 = ate_of_run(pose128, tracked128, gt_t)
+    return {"ate_m_88": ate, "tracked_88": n_tracked,
+            "keyframes_88": int(out.n_keyframes), "ate_m_128": ate128,
+            "tracked_128": n_tracked128,
+            "max_pose_gap": float(np.abs(pose - pose128).max())}
+
+
+def run_system(root: str, grays, depths, gt_t, off_pose, off_tracked) -> dict:
     """The normal entry point over the sequence written to ``root`` (see
-    the module docstring); returns one record per command-line run."""
+    the module docstring); returns one record per command-line run, the
+    offline one with its poses."""
     import numpy as np
 
     from visionx_slam_torch.data import native_loader, synthetic, tum
@@ -1273,8 +1331,15 @@ def run_system(root: str, grays, depths, gt_t) -> dict:
     res["scan"] = _brief(m)
     full_ts, full_xyz = ts, mats[:, :3, 3]
 
-    # 2. offline
-    res["offline"] = _brief(_cli(root, out("offline"), "--pipeline", "offline"))
+    # 2. offline, at the pipeline's 128 keyframe slots; the spread at 88
+    # slots is printed first, once
+    spread = offline_capacity_spread(grays, depths, gt_t, off_pose, off_tracked)
+    res["offline_capacity"] = spread
+    print(f"offline keyframe capacity: ATE {spread['ate_m_128']} m at 128 slots, "
+          f"{spread['ate_m_88']} m at 88; poses differ by up to "
+          f"{spread['max_pose_gap']} ({_card()})", flush=True)
+    res["offline"] = _brief(_cli(root, out("offline"), "--pipeline", "offline",
+                                 keep_poses=True))
 
     # 3. host (the default pipeline)
     res["host"] = _brief(_cli(root, out("host")))
@@ -1685,6 +1750,7 @@ def main() -> int:
     args = ap.parse_args()
     t_start = time.perf_counter()
 
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -1720,9 +1786,13 @@ def main() -> int:
 
     # ---- 4. the offline pipeline ----
     res = run_pipeline(grays, depths, gt_t)
+    off_pose, off_tracked = res.pop("_pose"), res.pop("_tracked")
     print("pipeline " + json.dumps(res) + f" ({card})", flush=True)
     T = res["frames"]
     _require(res["k1_launches"] > 0, "the pipeline launched K1")
+    bm = res["batched_matching"]
+    _require(bm["equal_to_loop"] and bm["slots"] == 1024 and bm["matches"] > 0,
+             f"match_frames_batched equals the per-pair loop bit for bit: {bm}")
     _require(res["tracked"] >= int(0.95 * T), f"tracked {res['tracked']}/{T}")
     _require(res["ate_m"] is not None and res["ate_m"] <= 0.011,
              f"ATE {res['ate_m']} m <= 0.011 m")
@@ -2045,7 +2115,8 @@ def main() -> int:
 
     # ---- 16. the normal entry point, from files on disk ----
     seq_root = tempfile.TemporaryDirectory()
-    sysr = run_system(seq_root.name, grays, depths, gt_t)
+    sysr = run_system(seq_root.name, grays, depths, gt_t, off_pose, off_tracked)
+    sys_pose, sys_tracked = sysr["offline"].pop("_pose"), sysr["offline"].pop("_tracked")
     print("system " + json.dumps(sysr) + f" ({card})", flush=True)
     s_scan, s_off, s_host, s_res = (sysr[k] for k in ("scan", "offline", "host", "resume"))
     for name, m in (("scan", s_scan), ("offline", s_off), ("host", s_host)):
@@ -2062,10 +2133,16 @@ def main() -> int:
              f"keyframes, the archive phase {arch['archived']}")
     _require(s_scan["k1_launches"] == arch["k1_launches"],
              "system scan launches K1 once per 8 frames of each 64-frame chunk")
-    _require(abs(s_off["n_tracked"] - res["tracked"]) <= 1
-             and abs(s_off["ate_rmse"] - res["ate_m"]) <= 5e-4,
-             f"system offline within one frame and 0.5 mm of the in-memory pipeline: "
-             f"{s_off['n_tracked']} vs {res['tracked']}, {s_off['ate_rmse']} vs "
+    # the same decoded frames, the same 128 keyframe slots and fixed-order
+    # solver sums: the run from disk is the in-memory run
+    print(f"system offline: ATE {s_off['ate_rmse']} m, tracked {s_off['n_tracked']}; "
+          f"in-memory pipeline ATE {res['ate_m']} m, tracked {res['tracked']} ({card})",
+          flush=True)
+    pose_equal = (np.array_equal(sys_tracked, off_tracked)
+                  and np.array_equal(sys_pose[sys_tracked], off_pose[off_tracked]))
+    _require(s_off["n_tracked"] == res["tracked"] and pose_equal,
+             f"system offline equals the in-memory pipeline bit for bit: tracked "
+             f"{s_off['n_tracked']} vs {res['tracked']}, ATE {s_off['ate_rmse']} vs "
              f"{res['ate_m']}")
     _require(s_host["k1_launches"] == T, "the host path launches K1 once per frame")
     if T == 240:

@@ -22,6 +22,7 @@ from torch_parity import SINGLE_THREAD_ENV
 _GUARD = r"""
 import importlib, pkgutil, sys
 import numpy as np
+import torch
 for name in ("jax", "jaxlib", "cv2", "visionx_slam_tpu"):
     sys.modules[name] = None          # any import of these now fails
 import visionx_slam_torch
@@ -31,6 +32,7 @@ from visionx_slam_torch import convert
 from visionx_slam_torch.data import synthetic
 from visionx_slam_torch.eval.trajectory import ate_of_run
 from visionx_slam_torch.models import estimation, local_ba, matching, orb_torch
+from visionx_slam_torch.models.matching import match_frames_batched
 from visionx_slam_torch.ops import detect, linalg
 from visionx_slam_torch.ops.camera import make_camera
 from visionx_slam_torch.tracking import mapstate, scan_pipeline, stages
@@ -58,6 +60,9 @@ _, outl = run_offline_pipeline(cam, g, np.zeros_like(d), TrackingOptions(),
                                mono_loop_pairs=2, mono_loop_merge=True,
                                mono_loop_min_gap=1)
 assert bool(np.isfinite(outl.pose.numpy()).all())
+_, _, desc, fvalid = orb_torch.orb_extract(torch.as_tensor(g[:3]))
+mb = match_frames_batched(desc[:2], fvalid[:2], desc[1:], fvalid[1:])
+assert mb.idx.shape == (2, 1024) and int(mb.valid.sum()) > 0
 st, out = run_scan_pipeline(cam, g, d, TrackingOptions(), device="cpu",
                             kf_capacity=8, lm_capacity=8192)
 ate, n = ate_of_run(out.pose.numpy(), out.tracked.numpy(), gt)

@@ -19,10 +19,7 @@ from visionx_slam_torch.eval import trajectory as traj
 from visionx_slam_torch.ops.camera import make_camera
 from visionx_slam_torch.system import system as tsystem
 from visionx_slam_torch.system.system import System
-from visionx_slam_torch.tracking.offline_pipeline import (
-    default_lane_kf_capacity,
-    run_offline_pipeline,
-)
+from visionx_slam_torch.tracking.offline_pipeline import run_offline_pipeline
 from visionx_slam_torch.tracking.scan_pipeline import run_scan_pipeline
 from visionx_slam_torch.utils.config import SystemConfig, TrackingOptions
 
@@ -181,8 +178,7 @@ def test_system_offline_equals_in_memory_run(dataset, tmp_path):
     summary = system.run()
     cam = make_camera(synthetic.FX, synthetic.FY, synthetic.CX, synthetic.CY)
     ms, o = run_offline_pipeline(cam, grays[:T_OFF], depths[:T_OFF], TrackingOptions(),
-                                 device="cpu", orb_kwargs=ORB,
-                                 kf_capacity=default_lane_kf_capacity(T_OFF))
+                                 device="cpu", orb_kwargs=ORB)
     assert bool(o.tracked.all())
     np.testing.assert_array_equal(_poses(system), o.pose.numpy())
     for a, b in zip(system.tracker.ms, ms):

@@ -53,10 +53,15 @@ constants).
   the first 120 frames: the scan clean, under each model of
   ``data/degrade.py::DEGRADATIONS`` and under all of them combined, each
   row with ``np.random.default_rng(7)``; tracked and rigid ATE per row;
-  chip_smoke.py's ``DEGRADE_JAX``.
+  chip_smoke.py's ``DEGRADE_JAX``;
+- capacity: the RGB-D offline pipeline over the 240 frames at 88 and at
+  128 keyframe slots, in the JAX package and in the port on the CPU: the
+  padded capacity changes the order of the solvers' sums, so each
+  package's poses move with it (its largest pose difference).
 
 Run from the repository root:
-``JAX_PLATFORMS=cpu python3 tools/port_jax_references.py [--configs 5 2b 2b_loop 2b_merge 2 cull cull_keep host fleet long_stress degrade]``.
+``JAX_PLATFORMS=cpu python3 tools/port_jax_references.py [--configs 5 2b 2b_loop 2b_merge 2 cull cull_keep host fleet long_stress degrade
+capacity]``.
 Prints one JSON line per config.
 """
 
@@ -332,6 +337,42 @@ def config_degrade(cam, opts, grays, depths, gts) -> dict:
     return {"config": "degrade", "frames": frames, "rows": rows}
 
 
+def config_capacity(cam, opts, grays, depths, gts) -> dict:
+    """The RGB-D offline pipeline over the 240 frames at 88 keyframe slots
+    (what the port's ``System`` used to size for them) and at the default
+    128, in the JAX package and in the port (on the CPU): each package's
+    largest pose difference between the two capacities."""
+    import torch
+
+    from visionx_slam_tpu.tracking.offline_pipeline import run_offline_pipeline
+    from visionx_slam_torch.data import synthetic
+    from visionx_slam_torch.ops.camera import make_camera as torch_camera
+    from visionx_slam_torch.tracking.offline_pipeline import (
+        run_offline_pipeline as torch_pipeline,
+    )
+    from visionx_slam_torch.utils.config import TrackingOptions as TorchOptions
+
+    tcam = torch_camera(synthetic.FX, synthetic.FY, synthetic.CX, synthetic.CY)
+    res = {"config": "capacity"}
+    for pkg in ("jax", "torch"):
+        poses = {}
+        for K in (88, 128):
+            if pkg == "jax":
+                _, out = run_offline_pipeline(cam, grays, depths, opts, kf_capacity=K)
+                pose, tr = np.asarray(out.pose), np.asarray(out.tracked)
+            else:
+                with torch.inference_mode():
+                    _, out = torch_pipeline(tcam, grays, depths, TorchOptions(),
+                                            device="cpu", kf_capacity=K)
+                pose, tr = out.pose.numpy(), out.tracked.numpy()
+            poses[K] = pose
+            res[f"{pkg}_{K}"] = {"tracked": int(tr.sum()),
+                                 "keyframes": int(out.n_keyframes),
+                                 "ate_m": _ate(pose, tr, gts, False)}
+        res[f"{pkg}_max_pose_gap"] = float(np.abs(poses[88] - poses[128]).max())
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--configs", nargs="+", default=["5", "2b", "2"])
@@ -362,7 +403,8 @@ def main() -> int:
                                              "cull_keep", **CULL_KEEP),
             "long_stress": lambda: config_long_stress(cam, opts, grays,
                                                       depths, gts),
-            "degrade": lambda: config_degrade(cam, opts, grays, depths, gts)}
+            "degrade": lambda: config_degrade(cam, opts, grays, depths, gts),
+            "capacity": lambda: config_capacity(cam, opts, grays, depths, gts)}
     for c in args.configs:
         t0 = time.perf_counter()
         res = runs[c]()

@@ -99,3 +99,19 @@ def match_frames(desc_a: torch.Tensor, valid_a: torch.Tensor,
     leading dims: desc [..., N, 32] uint8, valid [..., N] bool."""
     return reference_distance_filter(
         knn2_ratio_match(desc_a, valid_a, desc_b, valid_b, nn_ratio))
+
+
+def match_frames_batched(desc_a: torch.Tensor, valid_a: torch.Tensor,
+                         desc_b: torch.Tensor, valid_b: torch.Tensor,
+                         nn_ratio: float = NN_RATIO) -> MatchResult:
+    """``match_frames`` over a leading batch of frame pairs (the JAX
+    package's ``jax.vmap`` of it): desc [B, N, 32] uint8, valid [B, N] bool
+    -> a ``MatchResult`` of [B, N]; each pair's distance filter sees only
+    its own matches."""
+    if desc_a.dim() != 3 or desc_b.dim() != 3:
+        raise ValueError(f"descriptors [B, N, 32] expected, got "
+                         f"{tuple(desc_a.shape)} and {tuple(desc_b.shape)}")
+    if desc_a.shape[0] != desc_b.shape[0]:
+        raise ValueError(f"{desc_a.shape[0]} query frames against "
+                         f"{desc_b.shape[0]} train frames")
+    return match_frames(desc_a, valid_a, desc_b, valid_b, nn_ratio)

@@ -99,12 +99,13 @@ def init_group(store_path: str, rank: int, world_size: int,
                             world_size=world_size)
 
 
-def make_mesh(world_size: int | None = None, axis: str = "seq",
+def make_mesh(n_devices: int | None = None, axis: str = "seq",
               device: str | None = None) -> Mesh:
     """The mesh of the initialized default group (its backend decides the
     device: ``nccl`` the rank's card, ``gloo`` the CPU); with no group, a
-    world of one on ``device`` (default the card). ``world_size`` and
-    ``device``, when given, must agree with the group."""
+    world of one on ``device`` (default the card). ``n_devices`` (the
+    group's world size: one device per rank) and ``device``, when given,
+    must agree with the group."""
     if dist.is_available() and dist.is_initialized():
         backend = dist.get_backend()
         dev = (torch.device("cuda", torch.cuda.current_device())
@@ -118,8 +119,8 @@ def make_mesh(world_size: int | None = None, axis: str = "seq",
         mesh = Mesh(None, 0, 1, dev, axis)
     if device is not None and torch.device(device).type != mesh.device.type:
         raise ValueError(f"the group runs on {mesh.device}, not {device}")
-    if world_size is not None and world_size != mesh.world_size:
-        raise ValueError(f"asked for {world_size} ranks, the group has "
+    if n_devices is not None and n_devices != mesh.world_size:
+        raise ValueError(f"asked for {n_devices} ranks, the group has "
                          f"{mesh.world_size}")
     return mesh
 

@@ -396,14 +396,12 @@ class System:
 
         t0 = time.perf_counter()
         with self._stage("offline_pipeline"):
-            # as many keyframe slots as the sequence can fill (the keyframe
-            # gap bounds them), up to the pipeline's 128: a short run would
-            # only pad the rest
-            gap = max(1, cfg.tracking.min_keyframe_gap)
+            # the pipeline's own capacities, as the JAX System runs it: the
+            # padded keyframe capacity changes the order of the solvers'
+            # sums, so another capacity would compute another map
             ms, outs = run_offline_pipeline(
                 self.cam, grays, depths, cfg.tracking, device=self.device,
-                orb_kwargs=self._orb_kwargs, monocular=cfg.monocular,
-                kf_capacity=max(16, min(128, -(-len(entries) // gap) + 8)))
+                orb_kwargs=self._orb_kwargs, monocular=cfg.monocular)
         t_scan = time.perf_counter() - t0
         self._check_finite(outs.pose, "the offline pipeline's output")
         self.tracker.ms = ms

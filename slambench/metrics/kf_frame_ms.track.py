@@ -1,0 +1,7 @@
+"""Mean latency (ms) of live frames with a keyframe event."""
+
+from slambench import readers
+
+
+def read(ctx):
+    return readers.frame_ms(ctx, True)

@@ -42,6 +42,7 @@ from ..ops.se3 import (
     so3_exp,
     so3_hat,
 )
+from ..utils.logging import count_sync, span
 
 BIG = 1e9
 
@@ -118,6 +119,7 @@ def _dlt_pnp(X: torch.Tensor, x: torch.Tensor):
     M = Ps[..., :3]
     bad = ~torch.isfinite(M).all(-1).all(-1)
     Um, Sm, Vmt = torch.linalg.svd(torch.where(bad[..., None, None], 0.0, M))
+    count_sync(2)           # a batched svd waits twice on the card
     Um = torch.where(bad[..., None, None], torch.nan, Um)
     d = det3x3(Um) * det3x3(Vmt)
     Um = torch.cat([Um[..., :2], Um[..., 2:] * d[..., None, None]], dim=-1)
@@ -151,7 +153,8 @@ def _pose_gn_refine(cam: CameraParams, pose: Pose, X: torch.Tensor,
     [...], X [..., N, 3], px [..., N, 2], w [..., N]. J = J_proj(pc) @
     [I | -hat(pc)], left-multiplicative update; the 6x6 normal equations
     and rhs come from one augmented [7,2N]x[2N,7] product. ``robust``:
-    Huber IRLS weights with a gate, per iteration."""
+    Huber IRLS weights with a gate, per iteration. Ends the stage clock's
+    ``gn`` span."""
     fx, fy = cam.fx, cam.fy
     eye6 = 1e-6 * torch.eye(6, dtype=X.dtype, device=X.device)
     for _ in range(iters):
@@ -182,6 +185,7 @@ def _pose_gn_refine(cam: CameraParams, pose: Pose, X: torch.Tensor,
         dx = chol_solve6x6(H, M[..., :6, 6])
         dx = torch.where(torch.isfinite(dx).all(-1, keepdim=True), dx, 0.0)
         pose = se3_compose(se3_exp(dx), pose)
+    span("gn")
     return pose
 
 
@@ -213,7 +217,8 @@ def pnp_ransac(
     best min(16, H) get a 2-step GN polish on their own sample;
     ``init_pose`` adds a robust IRLS motion-prior hypothesis; the consensus
     winner is refined on its inliers (``refine_iters`` GN steps) and
-    re-scored."""
+    re-scored. On the stage clock everything but the GN steps is the
+    ``ransac`` span."""
     P, N = valid.shape
     if depth_curr is not None:
         good_d = (depth_curr > 0.1) & (depth_curr < 10.0) & valid
@@ -245,6 +250,7 @@ def pnp_ransac(
     sample_w = torch.zeros((P, n_polish, N), dtype=pts3d.dtype,
                            device=pts3d.device)
     sample_w.scatter_(-1, idx, 1.0)                          # one-hot of sample
+    span("ransac")
     poses_h = _pose_gn_refine(cam, Pose(matrix_to_quat(Rs), ts), X1, x1,
                               sample_w, iters=2)
     if init_pose is not None:
@@ -263,12 +269,14 @@ def pnp_ransac(
     finite = torch.isfinite(q).all(-1) & torch.isfinite(t).all(-1)
     q, t = _identity_where_not(finite, Pose(q, t))
     mask0 = inl[ar, best]
+    span("ransac")
 
     pose = _pose_gn_refine(cam, Pose(q, t), pts3d, pts2d, mask0.to(pts3d.dtype),
                            iters=refine_iters)
     err = _reproj_err_px(cam, quat_to_matrix(pose.q), pose.t, pts3d, pts2d)
     mask = (err < reproj_thresh) & valid
     n_inliers = mask.sum(-1).to(torch.int32)
+    span("ransac")
     return PnPResult(pose, mask, n_inliers, finite & (n_inliers > 0))
 
 
@@ -340,6 +348,7 @@ def _smallest_eigvec(M: torch.Tensor) -> torch.Tensor:
     bad = ~torch.isfinite(M).all(-1).all(-1)
     M = torch.where(bad[..., None, None], 0.0, M)
     w, v = torch.linalg.eigh(M)
+    count_sync()            # eigh reads its status on the host
     v0 = v[..., :, 0]
     shift = 1e-7 * torch.clamp(w[..., -1], min=1e-20)
     Ms = M + shift[..., None, None] * _eye(d, M)
@@ -407,6 +416,7 @@ def _project_essential(E: torch.Tensor):
     """E [..., 3, 3] -> (E on the essential manifold, U, Vt)."""
     bad = ~torch.isfinite(E).all(-1).all(-1)
     U, _, Vt = torch.linalg.svd(torch.where(bad[..., None, None], 0.0, E))
+    count_sync(2)           # a batched svd waits twice on the card
     U = torch.where(bad[..., None, None], torch.nan, U)
     Ep = U[..., :, :2] @ Vt[..., :2, :]          # U diag(1, 1, 0) Vt
     return Ep, U, Vt
@@ -574,7 +584,8 @@ def essential_ransac(
     annealed 4x -> 1x from the top ``lo_starts``, a GN Sampson polish kept
     if the consensus holds, and the 50-unit distance gate on the winner.
     Each batched ``eigh``/``svd`` synchronizes a CUDA stream once per call
-    (F7), so callers batch many problems into one call."""
+    (F7), so callers batch many problems into one call. The whole call is
+    the stage clock's ``ransac`` span."""
     single = valid.dim() == 1
     if single:
         px_last, px_curr, valid = px_last[None], px_curr[None], valid[None]
@@ -657,6 +668,7 @@ def essential_ransac(
     ok = ((n_inliers > 0) & torch.isfinite(R).all(-1).all(-1)
           & torch.isfinite(t).all(-1))
     res = EssentialResult(R, t, E, dist_mask, n_inliers, ok)
+    span("ransac")
     return EssentialResult(*(x[0] for x in res)) if single else res
 
 

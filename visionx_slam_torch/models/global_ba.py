@@ -28,6 +28,7 @@ from ..ops.camera import CameraParams
 from ..ops.index import segment_sum, segments
 from ..ops.linalg import inv3x3
 from ..ops.se3 import Pose, quat_to_matrix, se3_compose, se3_exp, so3_hat
+from ..utils.logging import count_sync
 from ..tracking import mapstate as msl
 from ..tracking.mapstate import MapState
 from .local_ba import _huber_w, _proj_jacobian
@@ -221,6 +222,7 @@ def global_ba(ms: MapState, cam: CameraParams,
         rhs = torch.where(free6, bp - W_u(Hll_inv_bl), 0.0)
         Hpp_safe = torch.where(free_kf[:, None, None], Hpp + lam * eye6, eye6)
         Pinv = torch.linalg.inv(Hpp_safe)
+        count_sync()            # inv reads its status on the host
 
         def prec(r):
             return torch.where(free6, torch.einsum("kij,kj->ki", Pinv, r), 0.0)

@@ -12,6 +12,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.logging import span
+
 BIG = 1e9
 NN_RATIO = 0.8          # reference orb_matcher.h:14
 MIN_DIST_FLOOR = 30.0   # reference tracking.cpp:218 max(2*min_dist, 30)
@@ -96,9 +98,12 @@ def match_frames(desc_a: torch.Tensor, valid_a: torch.Tensor,
                  desc_b: torch.Tensor, valid_b: torch.Tensor,
                  nn_ratio: float = NN_RATIO) -> MatchResult:
     """knn2 ratio match + the reference distance filter, batched over
-    leading dims: desc [..., N, 32] uint8, valid [..., N] bool."""
-    return reference_distance_filter(
+    leading dims: desc [..., N, 32] uint8, valid [..., N] bool. Ends the
+    stage clock's ``match`` span."""
+    res = reference_distance_filter(
         knn2_ratio_match(desc_a, valid_a, desc_b, valid_b, nn_ratio))
+    span("match")
+    return res
 
 
 def match_frames_batched(desc_a: torch.Tensor, valid_a: torch.Tensor,

@@ -76,6 +76,7 @@ from ..ops.se3 import (
     se3_matrix,
 )
 from ..utils.config import TrackingOptions
+from ..utils.logging import StageClock, count_sync
 from . import mapstate as msl
 from . import stages
 from .mapstate import FREE, MapState, PairLinks
@@ -158,6 +159,7 @@ def _keyframe_policy(opts: TrackingOptions, n_inl, parallax, ok,
     scan. ``lane_start`` [T-1] (folded lanes): pair j's second frame starts
     a lane, so it is a keyframe with a fresh carry. Returns is_kf [T]
     (frame 0 is a keyframe)."""
+    count_sync(3)           # the three reads
     n_inl = n_inl.cpu().numpy()
     parallax = parallax.cpu().numpy().astype(np.float32)
     ok = ok.cpu().numpy()
@@ -239,6 +241,8 @@ def build_keyframe_map(
     lm_alive[new] = True
     lm_obs = torch.zeros((Lp,), dtype=torch.int32, device=dev)
     lm_obs[new] = 1
+    # two boolean-mask reads and two host scalars copied in
+    count_sync(4)
 
     i32 = lambda v: torch.as_tensor(v, device=dev).to(torch.int32)
     ms = MapState(
@@ -389,8 +393,19 @@ def build_offline_pipeline(
     stages are also exposed as run.pre, run.refine and run.post, and the
     refine's solver options as run.gba_opts and run.wide_gba_opts (None
     without the loop merge).
-    ``timings``: if a dict is given, it is filled with each stage's seconds
-    (the stages then synchronize the device at their ends). ``stats``: if a
+    ``timings``: if a dict is given (``utils/logging.StageClock``), it gets,
+    accumulated over calls and each key written when its interval ends:
+    each stage's seconds (``extract``, ``pairs``, ``map``, ``refine``,
+    ``retrack``; with the mono loop closure also ``loop_scale``,
+    ``loop_merge``, ``refine_wide``), the stages then synchronizing the
+    device at their ends; ``"<stage>/<span>"``, the host seconds, without a
+    synchronize, of a stage's parts from the previous lap or span to the
+    end of a ``match_frames`` call (``match``), of ``pnp_ransac``'s and
+    ``essential_ransac``'s work outside Gauss-Newton (``ransac``) and of a
+    ``_pose_gn_refine`` call (``gn``), so a stage's spans sum to at most its
+    seconds; and ``"#host_syncs"``, the places the pass made the host wait
+    for the device (device-to-host reads, blocking copies in, status
+    checks), the clock's own synchronizes not counted. ``stats``: if a
     dict is given, it gets the loop closure's counts (reading them
     synchronizes).
 
@@ -441,7 +456,8 @@ def build_offline_pipeline(
         return sol.pose, sol.n_inliers, ok
 
     def run_pre(cam: CameraParams, images, depths, clock=None):
-        clock = clock or _StageClock(None, images.device)
+        clock = clock or StageClock(None, images.device)
+        clock.begin("extract")
         loop_stats = {}
         dev = images.device
         T = images.shape[0]
@@ -466,6 +482,7 @@ def build_offline_pipeline(
         px, desc, valid = (torch.cat(p) for p in list(zip(*feats))[:3])
         dfeat = None if monocular else torch.cat([f[3] for f in feats])
         clock.lap("extract")
+        clock.begin("pairs")
 
         # ---- 2+3. consecutive-pair matching + relative pose (light GN
         # polish: this pose only seeds the keyframe policy and the VO
@@ -481,6 +498,7 @@ def build_offline_pipeline(
                                      pair_ix, T_lane)
             if mono_loop_pairs > 0:
                 clock.lap("pairs")
+                clock.begin("loop_scale")
                 # the revisit gate needs only the rotation-only VO prefix,
                 # which does not depend on the scale
                 rot = _segmented_compose_scan(
@@ -493,6 +511,7 @@ def build_offline_pipeline(
                 dfeat = dfeat * factor[:, None]
                 loop_stats.update(factor=factor, verified=loop_ver)
                 clock.lap("loop_scale")
+                clock.begin("pairs")
         else:
             u_pair = _lane_draws(29, T_lane, pnp_hypotheses, N, dev)
 
@@ -530,6 +549,7 @@ def build_offline_pipeline(
             rt = torch.where(use_prev[:, None], torch.cat([rt[:1], rt[:-1]]), rt)
             rel_ok = ok | use_prev
         clock.lap("pairs")
+        clock.begin("map")
 
         # ---- 4. absolute poses: T_cw[i+1] = rel[i] ∘ ... ∘ rel[0], reset
         # at every lane start (whose cross-lane pair is the identity) ----
@@ -552,6 +572,7 @@ def build_offline_pipeline(
             f = b * T_lane + np.flatnonzero(is_kf_np[b * T_lane:(b + 1) * T_lane])[-K:]
             sel_np[b, K - len(f):] = f
         sel = torch.from_numpy(sel_np.reshape(KT)).to(dev)
+        count_sync()            # sel's copy to the device
         kvalid = sel >= 0
         slot_frame = sel.clamp(min=0)
         kf_px = px[slot_frame]
@@ -604,12 +625,14 @@ def build_offline_pipeline(
             link_strides=tuple(mono_link_strides) if monocular else (1,))
         clock.lap("map")
         if loop_merge:
+            clock.begin("loop_merge")
             # folded lanes: candidates within a lane block, budget per lane
             ms, n_ver, n_merged = _close_loops(
                 ms, mono_loop_pairs * B, mono_loop_min_gap,
                 mono_loop_min_inliers, slots_per_lane=None if B == 1 else K)
             loop_stats.update(pairs_verified=n_ver, links_merged=n_merged)
             clock.lap("loop_merge")
+        count_sync()            # is_kf's copy to the device
         aux = dict(poses_q=poses.q, poses_t=poses.t, tracked=tracked,
                    n_inl=n_inl, n_matches=n_matches, parallax=parallax,
                    is_kf=torch.from_numpy(is_kf_np).to(dev), px=px, desc=desc,
@@ -661,13 +684,15 @@ def build_offline_pipeline(
                                     max_reproj_error=mono_gba_max_reproj)
 
     def run_refine(cam: CameraParams, ms: MapState, clock=None) -> MapState:
+        clock = clock or StageClock(None, ms.kf_q.device)
         # folded lanes: one merged solve, gauge-grouped per lane block
         gg = (None if B == 1 else torch.arange(B, device=ms.kf_q.device)
               .repeat_interleave(K))
         if loop_merge:
+            clock.begin("refine_wide")
             ms, _ = global_ba(ms, cam, wide_gba_opts, gauge_group=gg)
-            if clock is not None:
-                clock.lap("refine_wide")
+            clock.lap("refine_wide")
+            clock.begin("refine")
         ms, _ = global_ba(ms, cam, gba_opts, gauge_group=gg)
         return ms
 
@@ -759,15 +784,18 @@ def build_offline_pipeline(
 
     def run(cam: CameraParams, images, depths, timings: dict | None = None,
             stats: dict | None = None):
-        clock = _StageClock(timings, images.device)
-        ms, _, aux = run_pre(cam, images, depths, clock)
-        if refine_iterations > 0:
-            ms = run_refine(cam, ms, clock)
-        clock.lap("refine")
-        ms, out = run_post(cam, ms, aux)
-        clock.lap("retrack")
-        if stats is not None:
-            stats.update(_loop_counts(aux["loop"], B))
+        clock = StageClock(timings, images.device)
+        with clock.active():
+            ms, _, aux = run_pre(cam, images, depths, clock)
+            clock.begin("refine")
+            if refine_iterations > 0:
+                ms = run_refine(cam, ms, clock)
+            clock.lap("refine")
+            clock.begin("retrack")
+            ms, out = run_post(cam, ms, aux)
+            clock.lap("retrack")
+            if stats is not None:
+                stats.update(_loop_counts(aux["loop"], B))
         return ms, out
 
     run.pre, run.refine, run.post = run_pre, run_refine, run_post
@@ -783,12 +811,14 @@ def _loop_counts(loop: dict, B: int) -> dict:
     landmark links."""
     out = {}
     if "factor" in loop:
+        count_sync(4)
         ver = loop["verified"].reshape(B, -1)
         f = loop["factor"]
         out.update(loop_verified_frames=int(ver.sum()),
                    loop_verified_frames_per_lane=ver.sum(1).tolist(),
                    loop_factor_min=float(f.min()), loop_factor_max=float(f.max()))
     if "pairs_verified" in loop:
+        count_sync(2)
         out.update(loop_pairs_verified=int(loop["pairs_verified"]),
                    loop_links_merged=int(loop["links_merged"]))
     return out
@@ -1030,6 +1060,7 @@ def _close_loops(ms: MapState, n_pairs: int, min_gap_frames: int,
     qs, ts = _greedy_pairs(host[0].astype(np.int64), host[1].astype(np.float32),
                            n_pairs, spl)
     sel = torch.from_numpy(np.stack([qs, ts])).to(dev)
+    count_sync(2)           # the read and the copy back
     active = sel[0] >= 0
     qc, tc = sel[0].clamp(min=0), sel[1].clamp(min=0)
 
@@ -1162,26 +1193,3 @@ def run_offline_pipeline_batched(
     N = ms.kf_desc.shape[1]
     return split_merged_lanes(ms, B, K, N, T, n_lm), out
 
-
-class _StageClock:
-    """Per-stage wall times; synchronizes the device at each lap, and only
-    when a ``timings`` dict was given."""
-
-    def __init__(self, timings: dict | None, device: torch.device):
-        self.timings = timings
-        self.device = device
-        self.t0 = self._now() if timings is not None else 0.0
-
-    def _now(self) -> float:
-        import time
-
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
-
-    def lap(self, name: str) -> None:
-        if self.timings is None:
-            return
-        t = self._now()
-        self.timings[name] = self.timings.get(name, 0.0) + (t - self.t0)
-        self.t0 = t

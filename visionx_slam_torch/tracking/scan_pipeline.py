@@ -123,14 +123,6 @@ class ScanCounters:
         self.kf_culled = 0
         self.ba_iterations = torch.zeros((), dtype=torch.int64, device=device)
         self.lm_culled = torch.zeros((), dtype=torch.int64, device=device)
-        # host wall seconds per stage: every frame ends in a device read,
-        # so on a host-bound loop these are the stages' real times
-        self.seconds = {"extract": 0.0, "init": 0.0, "track": 0.0, "keyframe": 0.0}
-
-    def lap(self, stage: str, t0: float) -> float:
-        t = time.perf_counter()
-        self.seconds[stage] += t - t0
-        return t
 
     def read(self, *vals: torch.Tensor) -> list:
         """Device values (scalars or vectors) -> one flat list of host
@@ -558,7 +550,6 @@ def build_scan_step(
         was_init_first = was == INIT and not st.have_init
         was_init_second = was == INIT and st.have_init
         next_lm = None
-        t0 = time.perf_counter()
         if was_init_first:
             st2, n_matches, inliers, parallax, ok, kf_match = init_first(
                 st, obs, frame_id, gray_mean, gray_std)
@@ -573,7 +564,6 @@ def build_scan_step(
         else:
             st2, n_matches, inliers, parallax, ok, kf_match = (
                 reset(st), 0, 0, 0.0, False, None)
-        t0 = ctr.lap("track" if was == GOOD else "init", t0)
 
         just_initialized = was_init_second and ok
         tracked_now = (was == GOOD and ok) or just_initialized
@@ -585,7 +575,6 @@ def build_scan_step(
         st3 = st2
         if need_kf:
             st3 = create_keyframe(st2, obs, frame_id, kf_match, next_lm)
-            ctr.lap("keyframe", t0)
         # post-frame state update (tracking.cpp:87-88)
         if tracked_now:
             st3 = st3._replace(
@@ -715,8 +704,7 @@ def _counter_stats(ctr: ScanCounters, frames: int) -> dict:
                 compactions=ctr.compactions, kf_events=ctr.kf_events,
                 kf_culled=ctr.kf_culled,
                 ba_iterations=int(ctr.ba_iterations),
-                lm_culled=int(ctr.lm_culled),
-                stage_seconds=dict(ctr.seconds))
+                lm_culled=int(ctr.lm_culled))
 
 
 def run_scan_pipeline(
@@ -749,10 +737,8 @@ def run_scan_pipeline(
     step = build_scan_step(cam, opts, (W, H), n_features_cap=n_features_cap,
                            kf_capacity=kf_capacity, lm_capacity=lm_capacity,
                            stage_limit=stage_limit, counters=ctr)
-    t0 = time.perf_counter()
     obs, mean, std, bits, pop = extract_sequence(images, depths, orb_kw)
     stats_host = ctr.read(mean, std) if T else []
-    ctr.lap("extract", t0)
     st = st0 if st0 is not None else initial_state(
         n_features_cap, kf_capacity, lm_capacity, dev)
     st, recs = _scan_frames(step, st, frame0, obs, bits, pop,

@@ -1,7 +1,9 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds kernels K1 and
 K1b from the repo's source, holds them bit for bit against their plain
 PyTorch versions (at the rendered 8-frame atlas and at edge shapes) and the
-pyramid atlas built on the card against the one built on the CPU, then
+pyramid atlas built on the card against the one built on the CPU, builds
+kernel K2 (the pose Gauss-Newton) and holds it against its plain version
+at the main path's three shapes, then
 drives the port's paths over a 240-frame 640x480 synthetic sequence (bench
 input: scene seed 5) and checks their accuracy: the RGB-D offline
 pipeline (and ``match_frames_batched`` over 8 consecutive pairs of its
@@ -106,6 +108,27 @@ def _time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _device_ms(fn, reps: int = 5, lead_ms: float = 50.0) -> float:
+    """Device time of one call of ``fn`` by CUDA events, a spin kernel
+    keeping the card busy while the host launches the call, so that the
+    events time the call's kernels and not the host's launches."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda._sleep(int(lead_ms * 2e6))   # ~lead_ms at 2 GHz
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
 def check_atlas(grays_u8) -> None:
     """The default (bf16) pyramid atlas built on the card equals the CPU
     build bit for bit (its float64 sums are exact in any order)."""
@@ -125,7 +148,8 @@ def check_atlas(grays_u8) -> None:
 
 
 def _kernel_record(name: str, replaces: str, n_bytes: int, n_ops: int,
-                   max_err: float, ms: float, plain_ms: float) -> dict:
+                   max_err: float, ms: float, plain_ms: float,
+                   source: str = "fast_harris_blur.cu") -> dict:
     """A kernel's entry of the result line. Its bound is the larger of the
     bytes it must move over the H100's 3.35 TB/s and its arithmetic over the
     67 TFLOP/s of float32 outside the tensor cores (``utils.flops``)."""
@@ -133,7 +157,7 @@ def _kernel_record(name: str, replaces: str, n_bytes: int, n_ops: int,
 
     bound = flops.bound_ms(n_bytes, n_ops)
     return {"name": name, "route": "cuda",
-            "source": "visionx_slam_torch/csrc/fast_harris_blur.cu",
+            "source": f"visionx_slam_torch/csrc/{source}",
             "replaces": replaces, "launches": 0, "max_abs_err": max_err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": ("bytes" if flops.bound_ms(n_bytes) >= flops.bound_ms(0, n_ops)
@@ -212,6 +236,117 @@ def check_k1b(grays_u8) -> dict:
                           max_err, ms_k, ms_p)
 
 
+# K2 against its plain version (tests/test_torch_gn_kernel.py): the largest
+# pose difference (unit quaternion, metres at 1-5 m depth) on problems where
+# the plain version's float32 and float64 runs agree within GN_TOL, and the
+# least share of such problems; the polish's 3-point systems amplify float32
+# rounding by their condition, hence its own bound
+GN_TOL = 1e-5
+GN_TOL_POLISH = 1e-4
+GN_STABLE_SHARE = 0.9
+
+
+def _gn_inputs(P: int, H: int, N: int, seed: int) -> dict:
+    """Pose Gauss-Newton problems on the card: N points a problem at 1-5 m
+    depth, pixels of a true pose with 0.5 px noise, start poses near the
+    truth; with ``H`` > 0, [P,1,N] points under [P,H] start poses each
+    weighted on its own 3-point sample (the polish), else [P,N] with 0/1
+    weights (95% on) and 10% of the pixels outliers."""
+    import torch
+
+    from visionx_slam_torch.ops.se3 import quat_conj, quat_mul, quat_rotate, so3_exp
+
+    cam = _camera()
+    g = torch.Generator().manual_seed(seed)
+    u = lambda *s: torch.rand(*s, generator=g)
+    n = lambda *s: torch.randn(*s, generator=g)
+    pc = torch.stack([3 * u(P, N) - 1.5, 2 * u(P, N) - 1, 4 * u(P, N) + 1], -1)
+    q, t = so3_exp(0.2 * n(P, 3)), 0.3 * n(P, 3)
+    X = quat_rotate(quat_conj(q)[:, None], pc - t[:, None])
+    px = torch.stack([cam.fx * pc[..., 0] / pc[..., 2] + cam.cx,
+                      cam.fy * pc[..., 1] / pc[..., 2] + cam.cy], -1)
+    px = px + 0.5 * n(P, N, 2)
+    out = u(P, N) < (0.0 if H else 0.1)
+    px = torch.where(out[..., None], u(P, N, 2) * torch.tensor([640.0, 480.0]), px)
+    q0, t0 = quat_mul(so3_exp(0.005 * n(P, 3)), q), t + 0.01 * n(P, 3)
+    if H:
+        q0 = quat_mul(so3_exp(0.002 * n(P, H, 3)), q0[:, None])
+        t0 = t0[:, None] + 0.005 * n(P, H, 3)
+        w = torch.zeros(P, H, N).scatter_(-1, torch.argsort(u(P, H, N), -1)[..., :3], 1.0)
+        X, px = X[:, None], px[:, None]
+    else:
+        w = (u(P, N) > 0.05).float()
+    return {k: v.contiguous().cuda() for k, v in
+            dict(q=q0, t=t0, X=X, px=px, w=w).items()}
+
+
+def check_gn() -> dict:
+    """K2 against its plain version at the main path's three shapes: the
+    polish ([32,1,1024] points under [32,16] poses, 2 steps), the robust
+    motion prior ([32] x 1024, 4 steps) and the final refine ([32] x 1024,
+    2 and 4 steps). On each, poses within ``GN_TOL`` (the polish:
+    ``GN_TOL_POLISH``) of the plain version's where float32 and float64
+    plain runs agree within ``GN_TOL`` (at least ``GN_STABLE_SHARE`` of the
+    problems), and bit for bit between two runs;
+    device times of K2 and of the plain version by CUDA events, and the
+    pace of back-to-back calls (``host_ms``: the host's launching of a call is
+    longer than K2's device time). Returns K2's result
+    record, timed at the polish, with every shape's numbers under
+    ``shapes``."""
+    import numpy as np
+    import torch
+
+    from visionx_slam_torch.models import estimation
+    from visionx_slam_torch.ops.se3 import Pose
+    from visionx_slam_torch.utils import flops
+
+    cam = _camera()
+    t0 = time.perf_counter()
+    estimation.build_gn_kernel()
+    build_s = time.perf_counter() - t0
+    robust = dict(robust=True, huber_delta=4.0, gate_px=20.0)
+    shapes = {"polish": (16, dict(iters=2)), "prior": (0, dict(iters=4, **robust)),
+              "refine2": (0, dict(iters=2)), "refine4": (0, dict(iters=4))}
+    rows = {}
+    for k, (name, (H, kw)) in enumerate(shapes.items()):
+        a = _gn_inputs(32, H, 1024, seed=100 + k)
+        args = (Pose(a["q"], a["t"]), a["X"], a["px"], a["w"])
+        k2 = lambda: estimation._pose_gn_refine(cam, *args, **kw)
+        plain = lambda: estimation._pose_gn_refine_plain(cam, *args, **kw)
+        r1, r2, p = k2(), k2(), plain()
+        d = {k_: v.double() for k_, v in a.items()}
+        p64 = estimation._pose_gn_refine_plain(
+            cam, Pose(d["q"], d["t"]), d["X"], d["px"], d["w"], **kw)
+        gap = lambda x, y: torch.maximum((x.q - y.q).abs().amax(-1),
+                                         (x.t - y.t).abs().amax(-1))
+        stable = gap(p, p64) <= GN_TOL
+        err = float(gap(r1, p)[stable].max())
+        bits = lambda x: torch.cat([x.q, x.t], -1).view(torch.int32)
+        _require(torch.equal(bits(r1), bits(r2)), f"K2 repeats bit for bit ({name})")
+        tol = GN_TOL_POLISH if H else GN_TOL
+        _require(float(stable.float().mean()) >= GN_STABLE_SHARE and err <= tol,
+                 f"K2 matches its plain version ({name}): {err} on "
+                 f"{float(stable.float().mean())} of the problems")
+        nb = int(np.prod(r1.t.shape[:-1]))
+        n_in = sum(v.numel() for v in a.values())
+        rows[name] = {"problems": nb, "points": 1024, **kw,
+                      "max_abs_err": err,
+                      "stable_share": float(stable.float().mean()),
+                      "ms": _device_ms(k2), "plain_ms": _device_ms(plain),
+                      "host_ms": _time_ms(k2), "plain_host_ms": _time_ms(plain),
+                      "bytes": flops.k2_bytes(nb, n_in),
+                      "ops": flops.k2_ops(nb, 1024, kw["iters"], kw.get("robust", False))}
+        rows[name]["bound_ms"] = flops.bound_ms(rows[name]["bytes"], rows[name]["ops"])
+        print(f"K2 {name} {json.dumps(rows[name])} ({_card()})", flush=True)
+    pol = rows["polish"]
+    rec = _kernel_record("pose_gn", "none: the JAX package leaves pose GN to XLA",
+                         pol["bytes"], pol["ops"],
+                         max(r["max_abs_err"] for r in rows.values()),
+                         pol["ms"], pol["plain_ms"], source="pose_gn.cu")
+    rec.update(build_s=build_s, shapes=rows)
+    return rec
+
+
 def run_pipeline(grays, depths, gt_t) -> dict:
     """The port's main path, a warm-up run then a counted, timed run (with
     per-stage times: the stages synchronize at their ends); returns its
@@ -220,6 +355,7 @@ def run_pipeline(grays, depths, gt_t) -> dict:
     import torch
 
     from visionx_slam_torch.eval.trajectory import ate_of_run
+    from visionx_slam_torch.models import estimation
     from visionx_slam_torch.ops import detect
     from visionx_slam_torch.tracking.offline_pipeline import run_offline_pipeline
     from visionx_slam_torch.utils.config import TrackingOptions
@@ -232,6 +368,7 @@ def run_pipeline(grays, depths, gt_t) -> dict:
 
     stage_s: dict = {}
     detect.launches = 0
+    estimation.gn_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ms, out = run_offline_pipeline(cam, g, d, opts, device="cuda", timings=stage_s)
@@ -248,6 +385,7 @@ def run_pipeline(grays, depths, gt_t) -> dict:
     return {"frames": T, "seconds": wall, "fps": T / wall, "ate_m": ate,
             "tracked": n_tracked, "keyframes": int(out.n_keyframes),
             "landmarks": int(out.n_landmarks), "k1_launches": launches,
+            "gn_launches": estimation.gn_launches,
             "stage_seconds": stage_s, "batched_matching": check_batched_matching(g),
             "_pose": pose, "_tracked": tracked}
 
@@ -340,6 +478,7 @@ def run_lanes(grays, depths, gt_t) -> dict:
     import torch
 
     from visionx_slam_torch.eval.trajectory import ate_of_run
+    from visionx_slam_torch.models import estimation
     from visionx_slam_torch.ops import detect
     from visionx_slam_torch.tracking.offline_pipeline import (
         default_lane_kf_capacity,
@@ -360,6 +499,7 @@ def run_lanes(grays, depths, gt_t) -> dict:
 
     stage_s: dict = {}
     detect.launches = 0
+    estimation.gn_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ms_b, out = run_offline_pipeline_batched(cam, g, d, opts, device="cuda",
@@ -386,6 +526,7 @@ def run_lanes(grays, depths, gt_t) -> dict:
             "lane_tracked": tracked.sum(1).tolist(),
             "keyframes": out.n_keyframes.tolist(),
             "landmarks": out.n_landmarks.tolist(), "k1_launches": launches,
+            "gn_launches": estimation.gn_launches,
             "single_lane0_ate_m": one_ate, "single_lane0_tracked": one_tracked,
             "single_lane0_equal_bit_for_bit": bool(torch.equal(out.pose[0], one.pose)
                                                    and torch.equal(out.tracked[0], one.tracked)),
@@ -401,6 +542,7 @@ def run_mono_offline(grays, gt_t) -> dict:
     import torch
 
     from visionx_slam_torch.eval.trajectory import ate_of_run
+    from visionx_slam_torch.models import estimation
     from visionx_slam_torch.ops import detect
     from visionx_slam_torch.tracking.offline_pipeline import (
         default_lane_kf_capacity,
@@ -418,6 +560,7 @@ def run_mono_offline(grays, gt_t) -> dict:
 
     stage_s: dict = {}
     detect.launches = 0
+    estimation.gn_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, out = run_offline_pipeline(cam, g, z, opts, device="cuda",
@@ -433,6 +576,7 @@ def run_mono_offline(grays, gt_t) -> dict:
             "ate_m_scale_aligned": ate, "tracked": n_tracked,
             "keyframes": int(out.n_keyframes),
             "landmarks": int(out.n_landmarks), "k1_launches": launches,
+            "gn_launches": estimation.gn_launches,
             "stage_seconds": stage_s, "_pose": out.pose}
 
 
@@ -558,6 +702,7 @@ def run_mono_scan(grays, gt_t) -> dict:
     import torch
 
     from visionx_slam_torch.eval.trajectory import ate_of_run
+    from visionx_slam_torch.models import estimation
     from visionx_slam_torch.ops import detect
     from visionx_slam_torch.tracking.scan_pipeline import run_scan_pipeline
     from visionx_slam_torch.utils.config import TrackingOptions
@@ -568,6 +713,7 @@ def run_mono_scan(grays, gt_t) -> dict:
     opts = TrackingOptions(link_tracked_landmarks=True, min_init_landmarks=25)
     stats: dict = {}
     detect.launches = 0
+    estimation.gn_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, out = run_scan_pipeline(_camera(), g, z, opts, device="cuda", stats=stats)
@@ -582,7 +728,7 @@ def run_mono_scan(grays, gt_t) -> dict:
             "first_tracked": int(np.flatnonzero(tracked)[0]) if tracked.any() else None,
             "keyframe_events": int(out.is_keyframe.sum()),
             "landmarks": int(out.n_landmarks[-1]), "k1_launches": detect.launches,
-            **stats}
+            "gn_launches": estimation.gn_launches, **stats}
 
 
 # The JAX package's scan with ``enable_culling=True`` on the 240 frames, on
@@ -686,6 +832,7 @@ def run_scan(grays, depths, gt_t) -> dict:
     import numpy as np
     import torch
 
+    from visionx_slam_torch.models import estimation
     from visionx_slam_torch.ops import detect
 
     cam = _camera()
@@ -696,6 +843,7 @@ def run_scan(grays, depths, gt_t) -> dict:
 
     stats: dict = {}
     detect.launches = 0
+    estimation.gn_launches = 0
     detect.score_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -704,6 +852,7 @@ def run_scan(grays, depths, gt_t) -> dict:
     wall = time.perf_counter() - t0
     res = {"frames": T, "seconds": wall, "fps": T / wall,
            "k1_launches": detect.launches, "k1b_launches": detect.score_launches,
+           "gn_launches": estimation.gn_launches,
            **_scan_metrics(out, gt_t), **stats}
     # kept for the resume phase's comparison; not printed
     res["_positions"] = out.pose[:, :3, 3].cpu().numpy()
@@ -1783,6 +1932,7 @@ def main() -> int:
     k1 = check_k1(grays[:8])
     k1["one_frame"] = time_k1_one_frame(grays[0])
     k1b = check_k1b(grays[:8])
+    gn = check_gn()
 
     # ---- 4. the offline pipeline ----
     res = run_pipeline(grays, depths, gt_t)
@@ -1790,6 +1940,7 @@ def main() -> int:
     print("pipeline " + json.dumps(res) + f" ({card})", flush=True)
     T = res["frames"]
     _require(res["k1_launches"] > 0, "the pipeline launched K1")
+    _require(res["gn_launches"] > 0, "the pipeline launched K2")
     bm = res["batched_matching"]
     _require(bm["equal_to_loop"] and bm["slots"] == 1024 and bm["matches"] > 0,
              f"match_frames_batched equals the per-pair loop bit for bit: {bm}")
@@ -1804,6 +1955,7 @@ def main() -> int:
     full_positions, full_tracked = scan.pop("_positions"), scan.pop("_tracked")
     print("scan " + json.dumps(scan) + f" ({card})", flush=True)
     _require(scan["k1_launches"] > 0, "the scan launched K1")
+    _require(scan["gn_launches"] > 0, "the scan launched K2")
     _require(scan["tracked"] >= int(0.95 * T), f"scan tracked {scan['tracked']}/{T}")
     if T == 240:
         _require(scan["ate_m"] is not None and scan["ate_m"] <= 2 * SCAN_ATE_JAX,
@@ -2251,11 +2403,16 @@ def main() -> int:
         "profile_stage": knobs["orb_k1_launches"],
         "profilers": knobs["profilers_k1_launches"]}
     k1b["launches_by_path"] = {"scan": scan["k1b_launches"]}
+    gn["launches"] = scan["gn_launches"]
+    gn["launches_by_path"] = {
+        "offline": res["gn_launches"], "scan": scan["gn_launches"],
+        "lanes": lanes["gn_launches"], "mono_offline": mono["gn_launches"],
+        "mono_scan": mscan["gn_launches"]}
 
     # ---- 21. result ----
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s "
           f"({card})", flush=True)
-    print(json.dumps({"kernels": [k1, k1b]}))
+    print(json.dumps({"kernels": [k1, k1b, gn]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

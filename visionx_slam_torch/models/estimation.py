@@ -23,11 +23,15 @@ offline pipeline, once per chunk of problems).
 
 from __future__ import annotations
 
+import ctypes
+import math
+from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..ops import cuda_build
 from ..ops.camera import CameraParams, backproject
 from ..ops.index import stable_topk, take_rows
 from ..ops.linalg import chol_solve4x4, chol_solve6x6, det3x3, solve3x3, solve6x6_spd
@@ -42,9 +46,17 @@ from ..ops.se3 import (
     so3_exp,
     so3_hat,
 )
+from ..utils import flops
 from ..utils.logging import count_sync, span
 
 BIG = 1e9
+
+# kernel K2, the pose Gauss-Newton of ``_pose_gn_refine``
+_K2_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "pose_gn.cu"
+# q, t, X, px, w, q_out, t_out, layout, params, stream (see the .cu file's foot)
+_K2_ARGTYPES = (ctypes.c_void_p,) * 10
+_K2_MAX_DIMS = 4
+gn_launches = 0   # K2 launches since import (or the last reset by a caller)
 
 
 class PnPResult(NamedTuple):
@@ -150,11 +162,141 @@ def _pose_gn_refine(cam: CameraParams, pose: Pose, X: torch.Tensor,
                     robust: bool = False, huber_delta: float = 0.0,
                     gate_px: float = 0.0) -> Pose:
     """Pose-only Gauss-Newton on weighted reprojection, batched: pose
+    [...], X [..., N, 3], px [..., N, 2], w [..., N], the batch dims
+    broadcasting (``_pose_gn_refine_plain`` has the function). For CUDA
+    tensors the whole call is one launch of kernel K2
+    (``csrc/pose_gn.cu``), for CPU tensors the plain version runs; there is
+    no fallback between the two. Either way it records K2's analytic work
+    with ``utils.flops``. Ends the stage clock's ``gn`` span."""
+    if X.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {X.device}")
+    kw = dict(iters=iters, robust=robust, huber_delta=huber_delta,
+              gate_px=gate_px)
+    batch = _batch_shape(pose.q.shape[:-1], pose.t.shape[:-1], X.shape[:-2],
+                         px.shape[:-2], w.shape[:-1])
+    n_problems = math.prod(batch)
+    in_elems = sum(a.numel() for a in (pose.q, pose.t, X, px, w))
+    with flops.unit("pose_gn",
+                    flops.k2_ops(n_problems, X.shape[-2], iters, robust),
+                    flops.k2_bytes(n_problems, in_elems)):
+        if X.device.type == "cpu":
+            pose = _pose_gn_refine_plain(cam, pose, X, px, w, **kw)
+        else:
+            pose = _launch_k2(cam, pose, X, px, w, batch, **kw)
+    span("gn")
+    return pose
+
+
+def _batch_shape(*shapes) -> tuple:
+    """The broadcast of ``shapes`` (``torch.broadcast_shapes``' rule, at a
+    tenth of its host time: this runs at every Gauss-Newton call)."""
+    rank = max(map(len, shapes))
+    out = []
+    for d in range(rank, 0, -1):
+        sizes = {s[-d] for s in shapes if len(s) >= d} - {1}
+        if len(sizes) > 1:
+            raise ValueError(f"shapes {shapes} do not broadcast")
+        out.append(sizes.pop() if sizes else 1)
+    return tuple(out)
+
+
+def _k2_layout(batch: tuple, inputs) -> tuple[list, list, list]:
+    """K2's view of ``inputs`` = (q, t, X, px, w) over the broadcast
+    ``batch``: the batch dims with size-1 dims dropped and neighbours merged
+    where every input allows, per merged dim each input's element stride (0
+    where it broadcasts), and the strides within a problem (q's and t's
+    entries, X's and px's points and coordinates, w's points). Raises on
+    what K2 does not take: a dtype other than float32, mismatched widths or
+    point counts, more than ``_K2_MAX_DIMS`` merged dims."""
+    q, t, X, px, w = inputs
+    for name, a in zip(("q", "t", "X", "px", "w"), inputs):
+        if a.dtype != torch.float32:
+            raise ValueError(f"K2 takes float32 inputs, got {name} {a.dtype}")
+    n = X.shape[-2] if X.dim() >= 2 else -1
+    if (q.shape[-1:] != (4,) or t.shape[-1:] != (3,) or n < 0
+            or X.shape[-1] != 3 or px.shape[-2:] != (n, 2)
+            or w.dim() < 1 or w.shape[-1] != n):
+        raise ValueError(
+            f"K2 takes q [...,4], t [...,3], X [...,N,3], px [...,N,2], "
+            f"w [...,N]; got {tuple(q.shape)}, {tuple(t.shape)}, "
+            f"{tuple(X.shape)}, {tuple(px.shape)}, {tuple(w.shape)}")
+    inner = ((q, 1), (t, 1), (X, 2), (px, 2), (w, 1))
+    rank = len(batch)
+    # each input's stride over each batch dim: 0 where it broadcasts
+    cols = [[0] * len(inner) for _ in batch]
+    for k, (a, m) in enumerate(inner):
+        shape, stride = a.shape[:-m], a.stride()[:a.dim() - m]
+        for j, (size, st) in enumerate(zip(shape, stride)):
+            if size != 1:
+                cols[rank - len(shape) + j][k] = st
+    sizes, strides = [], []
+    for size, col in zip(batch, cols):
+        if size == 1:
+            continue
+        if sizes and all(p == c * size for p, c in zip(strides[-1], col)):
+            sizes[-1] *= size
+            strides[-1] = col
+        else:
+            sizes.append(size)
+            strides.append(col)
+    if len(sizes) > _K2_MAX_DIMS:
+        raise ValueError(f"K2 takes at most {_K2_MAX_DIMS} batch dims after "
+                         f"merging; got {tuple(batch)}")
+    within = [st for a, m in inner for st in a.stride()[a.dim() - m:]]
+    return sizes, strides, within
+
+
+def _launch_k2(cam: CameraParams, pose: Pose, X: torch.Tensor,
+               px: torch.Tensor, w: torch.Tensor, batch: tuple,
+               iters: int, robust: bool, huber_delta: float,
+               gate_px: float) -> Pose:
+    """One launch of K2 on the current stream (no host read)."""
+    global gn_launches
+    inputs = (pose.q, pose.t, X, px, w)
+    sizes, strides, within = _k2_layout(batch, inputs)
+    if any(a.device != X.device for a in inputs):
+        raise ValueError("K2 takes pose, X, px and w on one device")
+    q_out = torch.empty((*batch, 4), dtype=torch.float32, device=X.device)
+    t_out = torch.empty((*batch, 3), dtype=torch.float32, device=X.device)
+    n_problems = q_out.numel() // 4
+    if n_problems == 0:
+        return Pose(q_out, t_out)
+    if n_problems > 2 ** 31 - 1:
+        raise ValueError(f"K2 takes at most 2**31 - 1 problems, got {n_problems}")
+    pad = [0] * (_K2_MAX_DIMS - len(sizes))
+    per_input = [c for k in range(len(inputs))
+                 for c in [col[k] for col in strides] + pad]
+    layout = (ctypes.c_longlong * 36)(n_problems, X.shape[-2], max(iters, 0),
+                                      int(robust), len(sizes), *sizes, *pad,
+                                      *per_input, *within)
+    params = (ctypes.c_float * 6)(cam.fx, cam.fy, cam.cx, cam.cy,
+                                  huber_delta, gate_px)
+    k2 = cuda_build.entry(_K2_SOURCE, "vxs_pose_gn", _K2_ARGTYPES)
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = k2(*(a.data_ptr() for a in inputs), q_out.data_ptr(),
+                 t_out.data_ptr(), layout, params, stream)
+    if err != 0:
+        raise RuntimeError(f"K2 launch failed with CUDA error {err}")
+    gn_launches += 1
+    return Pose(q_out, t_out)
+
+
+def build_gn_kernel() -> None:
+    """Compile and load K2 now (otherwise at the first launch)."""
+    cuda_build.entry(_K2_SOURCE, "vxs_pose_gn", _K2_ARGTYPES)
+
+
+def _pose_gn_refine_plain(cam: CameraParams, pose: Pose, X: torch.Tensor,
+                          px: torch.Tensor, w: torch.Tensor, iters: int = 10,
+                          robust: bool = False, huber_delta: float = 0.0,
+                          gate_px: float = 0.0) -> Pose:
+    """Pose-only Gauss-Newton on weighted reprojection, batched: pose
     [...], X [..., N, 3], px [..., N, 2], w [..., N]. J = J_proj(pc) @
     [I | -hat(pc)], left-multiplicative update; the 6x6 normal equations
     and rhs come from one augmented [7,2N]x[2N,7] product. ``robust``:
-    Huber IRLS weights with a gate, per iteration. Ends the stage clock's
-    ``gn`` span."""
+    Huber IRLS weights with a gate, per iteration. The plain version of
+    kernel K2: ``_pose_gn_refine`` runs it for CPU tensors."""
     fx, fy = cam.fx, cam.fy
     eye6 = 1e-6 * torch.eye(6, dtype=X.dtype, device=X.device)
     for _ in range(iters):
@@ -185,7 +327,6 @@ def _pose_gn_refine(cam: CameraParams, pose: Pose, X: torch.Tensor,
         dx = chol_solve6x6(H, M[..., :6, 6])
         dx = torch.where(torch.isfinite(dx).all(-1, keepdim=True), dx, 0.0)
         pose = se3_compose(se3_exp(dx), pose)
-    span("gn")
     return pose
 
 

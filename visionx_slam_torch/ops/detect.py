@@ -18,17 +18,14 @@ of a stage holds the same work on both devices. ``fast_harris_score``
 detection-only form: one launch of the same kernel compiled without the
 mask and the blur, reading the float32 image and rounding it to bf16 as it
 loads. Both are compiled with ``nvcc`` from the repo's source at first use
-into ``build/`` and bound through a plain C interface with ``ctypes``.
+into ``build/`` and bound through a plain C interface with ``ctypes``
+(``ops/cuda_build.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -36,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils import flops
+from . import cuda_build
 
 NEG = -3.0e38  # stand-in for -inf that survives f32 arithmetic
 HARRIS_K = 0.04
@@ -52,7 +50,6 @@ FAST_CIRCLE = np.array(
 
 _PKG = Path(__file__).resolve().parents[1]
 _SOURCE = _PKG / "csrc" / "fast_harris_blur.cu"
-_BUILD_DIR = _PKG / "build"
 
 launches = 0        # K1 launches since import (or the last reset by a caller)
 score_launches = 0  # K1b (fast_harris_score) launches, likewise
@@ -71,50 +68,18 @@ def _blur_taps_bf16() -> tuple[float, ...]:
     return tuple(float(v) for v in k.float())
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: K1 cannot be built")
-    return path
-
-
-@functools.lru_cache(maxsize=None)
-def _build(source: Path) -> ctypes.CDLL:
-    """Compile ``source`` (once per source version) into a shared library
-    under ``build/`` and load it."""
-    src = source.read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:16]
-    so = _BUILD_DIR / f"{source.stem}_{tag}.so"
-    if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
-               "-Xcompiler", "-fPIC", "-o", str(tmp), str(source)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"K1 build failed:\n{res.stdout}{res.stderr}")
-        os.replace(tmp, so)
-        so.with_suffix(".ptxas.txt").write_text(res.stderr)
-    return ctypes.CDLL(str(so))
-
-
 # C signatures of the library's entry points (see the .cu file's foot)
 _ARGTYPES = {
-    "vxs_fast_harris_blur": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p],
-    "vxs_fast_harris_score": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_void_p],
+    "vxs_fast_harris_blur": (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3 + (
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p),
+    "vxs_fast_harris_score": (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 3 + (
+        ctypes.c_float, ctypes.c_void_p),
 }
 
 
-@functools.lru_cache(maxsize=None)
 def _entry(source: Path, name: str):
     """The entry point ``name`` of the library built from ``source``."""
-    fn = getattr(_build(source), name)
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = ctypes.c_int
-    return fn
+    return cuda_build.entry(source, name, _ARGTYPES[name])
 
 
 @functools.lru_cache(maxsize=None)

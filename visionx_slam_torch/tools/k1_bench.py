@@ -33,7 +33,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..ops import detect
+from ..ops import cuda_build, detect
 from ..utils import flops
 
 # shapes the tiling must get right besides the atlas: odd W; H below one
@@ -83,7 +83,7 @@ def k1b_by_k1(img: torch.Tensor) -> torch.Tensor:
 
 
 def k1b_fn(source: Path):
-    lib = detect._build(source)
+    lib = cuda_build.build(source)
     return detect.fast_harris_score if hasattr(lib, "vxs_fast_harris_score") \
         else k1b_by_k1
 
@@ -165,7 +165,7 @@ def time_ms(fn, reps: int) -> float:
 def sass_counts(source: Path) -> dict:
     """{kernel: {"F2F": n, "F2FP": n, "instructions": n, "mix": {opcode: n}}}
     from cuobjdump, the mix holding the 12 most frequent opcodes."""
-    so = next(detect._BUILD_DIR.glob(f"{source.stem}_*.so"), None)
+    so = next(cuda_build.BUILD_DIR.glob(f"{source.stem}_*.so"), None)
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if so is None:
         return {}
@@ -223,10 +223,10 @@ def main() -> int:
     for src in sources:
         use_source(src)
         t0 = time.perf_counter()
-        detect._build(src)
+        cuda_build.build(src)
         print(f"== {src.name}: built in {time.perf_counter() - t0:.2f} s",
               flush=True)
-        log = next(detect._BUILD_DIR.glob(f"{src.stem}_*.ptxas.txt"), None)
+        log = next(cuda_build.BUILD_DIR.glob(f"{src.stem}_*.ptxas.txt"), None)
         if log is not None:
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line or "Compiling" in line:

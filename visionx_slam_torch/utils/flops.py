@@ -94,6 +94,28 @@ def k1b_ops(shape) -> int:
     return int(np.prod(shape)) * K1B_OPS_PER_PIXEL
 
 
+# arithmetic of kernel K2 (pose Gauss-Newton), per point and step: the
+# rotation and translation 33, projection, residuals and weight 13 (the
+# robust weight 10 more), the Jacobian 17, the weighted rows and the 27 sums
+# 120; per problem and step, the 6x6 Cholesky solve, se3_exp and the
+# composition, about 400
+K2_OPS_PER_POINT = 33 + 13 + 17 + 120
+K2_ROBUST_OPS_PER_POINT = 10
+K2_SOLVE_OPS = 400
+
+
+def k2_bytes(n_problems: int, in_elems: int) -> int:
+    """Least traffic of K2: every float32 element of its inputs read once
+    (an input that broadcasts over the problems counts once) and each
+    problem's pose (7 floats) written."""
+    return 4 * (in_elems + 7 * n_problems)
+
+
+def k2_ops(n_problems: int, n_points: int, iters: int, robust: bool) -> int:
+    per_point = K2_OPS_PER_POINT + (K2_ROBUST_OPS_PER_POINT if robust else 0)
+    return max(iters, 0) * n_problems * (n_points * per_point + K2_SOLVE_OPS)
+
+
 def bound_ms(n_bytes: int, n_ops: int = 0) -> float:
     """The least time of a kernel on an H100: the larger of its bytes over
     the memory rate and its float32 operations over the float32 rate."""

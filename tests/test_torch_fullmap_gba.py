@@ -21,12 +21,16 @@ packages alike, and either package's second step may fling a few such
 landmarks away (seen in the JAX package at 48 frames: mean error 0.15 ->
 1.03 px, the port's 0.116 px); there the two solves are held to the same
 cost entering the second iteration within 1e-3 relative, and the port's
-solve to a lower mean reprojection error than it started from. When
-the archive did not outgrow the ring, ``run_global_ba`` solves the ring map
-with ``global_ba``.
+solve to a lower mean reprojection error than it started from. That
+fling (F17) goes with the port's disparity row, which ``System`` turns on:
+the row keeps the landmarks' depth errors against the truth at most where
+they started. When the archive did not outgrow the ring, ``run_global_ba``
+solves the ring map with ``global_ba``.
 """
 
+import json
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -47,7 +51,10 @@ from visionx_slam_torch.system import system as TSYS
 from visionx_slam_torch.tracking import scan_pipeline as TSP
 from visionx_slam_torch.utils.config import TrackingOptions
 
+from slambench.reference import files
 from torch_parity import cameras, sequence, to_np
+
+ROOT = Path(__file__).resolve().parents[1]
 
 KF_CAP, T = 12, 48
 KW = dict(kf_capacity=KF_CAP, lm_capacity=1 << 15)
@@ -153,6 +160,33 @@ def test_archive_and_union_map_match_jax(archived_run):
     err0 = float(TG.map_reproj_error(ut, tc)[0])
     err_t = float(TG.map_reproj_error(t2, tc)[0])
     assert err_t < 0.9 * err0, (err0, err_t)
+
+
+def test_the_disparity_row_keeps_two_view_landmarks(archived_run):
+    """F17 on the union map: the solve without the disparity row (the JAX
+    package's) slides two-view landmarks along their rays, metres far at
+    the 99th percentile of the per-observation depth errors against the
+    truth; with ``System``'s ``DISPARITY_BF`` no landmark goes further than
+    it started, and the percentile stays under the ``rgbd.system_disk``
+    cell's limit."""
+    _, _, archive, _ = archived_run
+    _, depths, _ = sequence(T, 19)          # before the holes
+    _, tc = cameras()
+    ut, lt = TSYS.archive_union_map(archive, tc, TrackingOptions(), device="cpu")
+    limit = json.loads((ROOT / "slambench/limits/rgbd.system_disk.json")
+                       .read_text())["gba_obs_depth_p99_mm"]["limit"]
+
+    def p99(ms):
+        err = files.obs_depth_errors(
+            convert.mapstate_to_numpy(ms), depths.shape[:0:-1],
+            lambda f, u, v: depths[f, v.astype(int), u.astype(int)])
+        return 1e3 * float(np.percentile(err, 99))
+
+    opts = TG.GlobalBAOptions(max_iterations=4)
+    plain, _ = TP.pair_ba(ut, tc, lt, opts)
+    rowed, _ = TP.pair_ba(ut, tc, lt, opts, disparity_bf=TSYS.DISPARITY_BF)
+    assert p99(plain) > 1000.0
+    assert p99(rowed) <= p99(ut) < limit
 
 
 def test_ring_map_is_solved_by_global_ba():

@@ -31,6 +31,7 @@ from ..ops.camera import CameraParams
 from ..ops.se3 import Pose, quat_to_matrix, se3_compose, se3_exp
 from ..tracking import mapstate as msl
 from ..tracking.mapstate import MapState, PairLinks
+from ..tracking.stages import MAX_DEPTH, MIN_DEPTH
 from .global_ba import GlobalBAOptions, GlobalBAStats
 from .local_ba import _huber_w
 
@@ -92,10 +93,18 @@ def _sym3_apply(mi: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def pair_ba(ms: MapState, cam: CameraParams, links: PairLinks,
-            opts: GlobalBAOptions = GlobalBAOptions()):
+            opts: GlobalBAOptions = GlobalBAOptions(), disparity_bf: float = 0.0):
     """Schur-complement Gauss-Newton over an offline-built pairwise map;
     stands in for ``global_ba`` when ``links`` is at hand (same options and
-    stats). Returns (MapState, GlobalBAStats); ``ms`` is not modified."""
+    stats). Returns (MapState, GlobalBAStats); ``ms`` is not modified.
+
+    ``disparity_bf`` > 0 (a port option; the JAX package has none) gives
+    every observation whose feature has a depth reading a third residual
+    row, the disparity ``bf/depth - bf/z`` in pixels under the same Huber
+    weight, as ORB-SLAM2's RGB-D BA constrains depth through its virtual
+    right coordinate (``bf``: baseline times fx). A landmark then has a
+    full-rank system from its creating view alone, so the weak second view
+    cannot move it far along its ray (F17). 0 keeps the two rows."""
     K = ms.kf_capacity
     N = ms.n_features
     Lp = ms.lm_physical
@@ -130,6 +139,11 @@ def pair_ba(ms: MapState, cam: CameraParams, links: PairLinks,
     lam = opts.damping
     eye6 = torch.eye(6, dtype=dt, device=dev)
 
+    if disparity_bf > 0:
+        d = ms.kf_depth
+        has_d = (d >= MIN_DEPTH) & (d <= MAX_DEPTH)
+        disp = torch.where(has_d, disparity_bf / d.clamp(min=MIN_DEPTH), 0.0)
+
     q, t = ms.kf_q, ms.kf_t
     last_cost = torch.full((), torch.finfo(torch.float32).max, dtype=dt, device=dev)
     done = ~enabled
@@ -146,6 +160,8 @@ def pair_ba(ms: MapState, cam: CameraParams, links: PairLinks,
         iz = 1.0 / torch.clamp(pc[2], min=1e-6)
         e = obs_uv.transpose(0, 1) - torch.stack([
             cam.fx * pc[0] * iz + cam.cx, cam.fy * pc[1] * iz + cam.cy])  # [2,K,N]
+        if disparity_bf > 0:
+            e = torch.cat([e, torch.where(has_d, disp - disparity_bf * iz, 0.0)[None]])
         sq = (e * e).sum(0)
         en = torch.sqrt(sq)
         obs = has_obs & z_ok & (en <= opts.max_reproj_error)
@@ -153,20 +169,25 @@ def pair_ba(ms: MapState, cam: CameraParams, links: PairLinks,
         cost = torch.where(obs, w * sq, 0.0).sum()   # 0 x non-finite stays 0
         total_obs = obs.sum().to(torch.int32)
 
-        # projection Jacobian rows (u, v) [2,3,K,N], the pose Jacobian
-        # [2,6,K,N] (translation block, then pc x row) and the point
-        # Jacobian J_proj R [2,3,K,N]
+        # projection Jacobian rows (u, v, the disparity with
+        # ``disparity_bf``) [R,3,K,N], the pose Jacobian [R,6,K,N]
+        # (translation block, then pc x row) and the point Jacobian
+        # J_proj R [R,3,K,N]
         fxiz, fyiz = cam.fx * iz, cam.fy * iz
         zero = torch.zeros_like(iz)
         Jp = torch.stack([torch.stack([fxiz, zero, -fxiz * pc[0] * iz]),
                           torch.stack([zero, fyiz, -fyiz * pc[1] * iz])])
+        if disparity_bf > 0:
+            Jd = torch.where(has_d, -disparity_bf * iz * iz, 0.0)
+            Jp = torch.cat([Jp, torch.stack([zero, zero, Jd])[None]])
+        R = Jp.shape[0]                                      # residual rows
         J6 = torch.cat([Jp, torch.linalg.cross(pc[None].expand_as(Jp), Jp, dim=1)], 1)
-        P = (Jp[:, :, None] * Rt[None]).sum(1)               # [2,3(l),K,N]
+        P = (Jp[:, :, None] * Rt[None]).sum(1)               # [R,3(l),K,N]
 
         # pose normal equations: one batched Gram matrix over (row, feature)
-        A = torch.cat([J6, e[:, None]], 1)                   # [2,7,K,N]
-        M = A.permute(2, 0, 3, 1).reshape(K, 2 * N, 7)
-        Mw = M * w[:, None, :, None].expand(K, 2, N, 1).reshape(K, 2 * N, 1)
+        A = torch.cat([J6, e[:, None]], 1)                   # [R,7,K,N]
+        M = A.permute(2, 0, 3, 1).reshape(K, R * N, 7)
+        Mw = M * w[:, None, :, None].expand(K, R, N, 1).reshape(K, R * N, 1)
         G = Mw.transpose(1, 2) @ M                           # [K,7,7]
         Hpp, bp = G[:, :6, :6], G[:, :6, 6]
 

@@ -23,7 +23,6 @@ the ring at chunk boundaries, with chunks no longer than the ring.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import logging
 import os
@@ -53,15 +52,25 @@ from ..tracking.scan_pipeline import (
 )
 from ..tracking.stages import FrameObs
 from ..utils.config import SystemConfig, TrackingOptions
-from ..utils.logging import JsonlWriter, StageTimer
+from ..utils.logging import JsonlWriter, StageClock, count_sync, span
 from ..utils.rotation import quat_xyzw_to_matrix
 
 log = logging.getLogger("vxs.system")
+
+# ``System``'s union solve: ``pair_ba``'s disparity row (px m), one pixel a
+# standard deviation of the Kinect's depth, 1.425e-3 z^2 m (Khoshelham and
+# Elberink, Sensors 2012), as a keypoint's row is one a pixel
+DISPARITY_BF = 1 / 1.425e-3
+
+# ``summary["stage_timings"]``'s names of the stage clock's keys
+_TIMING_NAMES = {"gba": "global_ba", "scan": "scan_dispatch",
+                 "scan/upload": "upload"}
 
 
 def save_snapshot(path: str, ms: MapState, next_frame_id: int) -> None:
     """Write the map checkpoint ``path`` (npz); ``next_frame_id``: the id
     of the first frame a resumed run will process."""
+    count_sync(len(ms))     # one copy out a field
     np.savez_compressed(
         path, _meta_next_frame_id=np.asarray(next_frame_id, np.int64),
         **mapstate_to_numpy(ms))
@@ -85,6 +94,7 @@ def harvest_keyframes(archive: dict, ms: MapState) -> dict:
     the number of new keyframes); returns ``archive``."""
     kf = {f: getattr(ms, f).cpu().numpy() for f in
           ("kf_id", "kf_q", "kf_t", "kf_px", "kf_desc", "kf_fvalid", "kf_depth")}
+    count_sync(len(kf))
     for slot in np.flatnonzero(kf["kf_id"] >= 0):
         fid = int(kf["kf_id"][slot])
         if fid in archive:
@@ -121,6 +131,7 @@ def archive_union_map(archive: dict, cam: CameraParams, opts: TrackingOptions,
     kf_id[:len(fids)] = fids
     dev = torch.device(device)
     on = lambda x: torch.from_numpy(x).to(dev)
+    count_sync(8)           # the eight copies in
     return build_keyframe_map(
         cam, opts, on(kf_q), on(pad("t")), on(kf_id), on(pad("px")),
         on(pad("desc", 0, np.uint8)), on(pad("fvalid", False, bool)),
@@ -129,26 +140,33 @@ def archive_union_map(archive: dict, cam: CameraParams, opts: TrackingOptions,
 
 def run_global_ba(ms: MapState, cam: CameraParams, opts: TrackingOptions,
                   archive: dict | None = None, iterations: int = 10,
-                  device="cuda") -> tuple[MapState, dict]:
+                  device="cuda", disparity_bf: float = 0.0) -> tuple[MapState, dict]:
     """Full-map Schur-complement BA (BASELINE config 4). When ``archive``
     holds more keyframes than the ring of ``ms`` (it is first topped up from
     ``ms``), the solve covers the union map of every archived keyframe with
-    ``pair_ba`` (that map has the pairwise link structure); otherwise it is
-    ``global_ba`` on ``ms``, whose observation graph is general. Returns
+    ``pair_ba`` (that map has the pairwise link structure), with its
+    ``disparity_bf`` row where that is above 0; otherwise it is
+    ``global_ba`` on ``ms``, whose observation graph is general. On an
+    active stage clock it ends the spans ``harvest`` and ``union`` (union
+    solves only) and ``solve`` (both reprojection errors, the solve and the
+    reads of its results) and counts its host reads. Returns
     (refined map, summary): iterations, final cost, observations, the mean
     reprojection error before and after, ``archived_keyframes`` (union
     solves only), and the refined keyframes in frame-id order as
     ``keyframe_ids`` and ``keyframe_poses`` [n,4,4] T_cw (numpy)."""
     extra = {}
     links = None
+    count_sync()            # the ring's keyframe count
     if archive is not None and len(archive) > int(msl.n_keyframes(ms)):
         harvest_keyframes(archive, ms)             # the last chunk's keyframes
+        span("harvest")
         ms, links = archive_union_map(archive, cam, opts, device)
+        span("union")
         extra["archived_keyframes"] = len(archive)
     err0, _ = map_reproj_error(ms, cam)
     gba_opts = GlobalBAOptions(max_iterations=iterations)
     if links is not None:
-        ms2, stats = pair_ba(ms, cam, links, gba_opts)
+        ms2, stats = pair_ba(ms, cam, links, gba_opts, disparity_bf)
     else:
         ms2, stats = global_ba(ms, cam, gba_opts)
     err1, _ = map_reproj_error(ms2, cam)
@@ -157,7 +175,7 @@ def run_global_ba(ms: MapState, cam: CameraParams, opts: TrackingOptions,
     slots = slots[np.argsort(kf_ids[slots], kind="stable")]
     at = torch.from_numpy(slots).to(ms2.kf_q.device)
     poses = se3_matrix(Pose(ms2.kf_q[at], ms2.kf_t[at])).cpu().numpy()
-    return ms2, {
+    summary = {
         "iterations": int(stats.iterations),
         "final_cost": float(stats.final_cost),
         "total_obs": int(stats.total_obs),
@@ -167,6 +185,9 @@ def run_global_ba(ms: MapState, cam: CameraParams, opts: TrackingOptions,
         "keyframe_poses": poses,
         **extra,
     }
+    count_sync(8)           # the ids, the slots' copy in, the poses, five scalars
+    span("solve")
+    return ms2, summary
 
 
 class ScanStream:
@@ -215,6 +236,7 @@ class ScanStream:
             frame0=self.next_frame, stats=cs, **self._kw)
         self.next_frame += n
         self._outs.append(out)
+        count_sync(cs["host_syncs"])    # the chunk's reads, as the scan counts them
         for k, v in cs.items():
             if isinstance(v, (int, float)):
                 self._totals[k] = self._totals.get(k, 0) + v
@@ -281,10 +303,28 @@ _STATE_NAMES = {0: "INIT", 1: "TRACKING_GOOD", 2: "TRACKING_BAD", 3: "LOST"}
 
 
 class System:
-    """End-to-end runner for one sequence, on ``cfg.device``."""
+    """End-to-end runner for one sequence, on ``cfg.device``.
 
-    def __init__(self, cfg: SystemConfig):
+    ``run`` times its stages on a stage clock
+    (``utils/logging.py::StageClock``), synchronized at each lap, and
+    reports this run's laps as ``summary["stage_timings"]``. ``timings``:
+    if a dict is given, the clock is kept in it, values accumulating over
+    runs; without it the clock's dict is the run's own. The scan
+    pipeline's keys: ``decode`` (the wait for and the decoding of a chunk's
+    files) and ``scan`` (its upload, the host span ``scan/upload``, and
+    ``ScanStream.feed``), each lapped once a chunk; ``gba`` (the global BA,
+    with the host spans ``gba/harvest``, ``gba/union`` and ``gba/solve``
+    inside it); ``outputs`` (the frame results read back and every output
+    file); and ``#host_syncs``. The keys tile the run. Spans that the
+    scan's own functions end land there too: ``scan/orb`` (a chunk's ORB),
+    then a frame's ``scan/match``, ``scan/ransac``, ``scan/gn`` and
+    ``scan/step`` (the rest of its step). The offline pipeline laps ``decode`` and
+    ``offline_pipeline``, the host path ``decode``, ``extract`` and
+    ``track`` a frame."""
+
+    def __init__(self, cfg: SystemConfig, timings: dict | None = None):
         self.cfg = cfg
+        self.timings = timings
         self.device = torch.device(cfg.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -313,7 +353,6 @@ class System:
                 device=self.device)
         self.tracker = Tracker(self.cam, cfg.tracking, device=cfg.device)
         self.results: list[FrameResult] = []
-        self.timer = StageTimer()
         self.loader_used = ""    # "native" or "python", once frames were read
         self._decode_s = 0.0     # seconds spent decoding (worker threads' sum
                                  # with the native loader)
@@ -327,14 +366,6 @@ class System:
     def _orb_kwargs(self) -> dict:
         return {"n_features": self.cfg.n_features,
                 "resize_f32": int(self.cfg.orb_resize_f32)}
-
-    @contextlib.contextmanager
-    def _stage(self, name: str):
-        """A timed stage that ends when the device has finished its work."""
-        with self.timer.stage(name):
-            yield
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
 
     def _check_finite(self, poses: torch.Tensor, what: str) -> None:
         """``debug_nans``: raise at the first non-finite pose (one device
@@ -362,14 +393,40 @@ class System:
         return summary
 
     def _dispatch(self, entries) -> dict:
-        if self.cfg.pipeline == "scan":
-            return self._run_scan(entries)
-        if self.cfg.pipeline == "offline":
-            return self._run_offline(entries)
-        return self._run_host(entries)
+        """The pipeline's run on the stage clock."""
+        pipeline = self.cfg.pipeline
+        timings = self.timings if self.timings is not None else {}
+        self._before = dict(timings)
+        self._clock = StageClock(timings, self.device)
+        with self._clock.active():
+            if pipeline == "scan":
+                summary = self._run_scan(entries)
+            elif pipeline == "offline":
+                summary = self._run_offline(entries)
+            else:
+                summary = self._run_host(entries)
+            self._clock.lap("outputs")
+        return summary
+
+    def _stage_timings(self) -> dict:
+        """This run's laps of the clock under ``_TIMING_NAMES`` (the scan's
+        ``decode`` as ``decode_wait``), and the spans of the lapped stages:
+        each with its seconds, its stage's laps and their mean (ms)."""
+        clock = self._clock
+        names = dict(_TIMING_NAMES, **({"decode": "decode_wait"}
+                                       if self.cfg.pipeline == "scan" else {}))
+        out = {}
+        for key, v in clock.timings.items():
+            n = clock.laps.get(key.split("/")[0], 0)
+            if n:
+                s = v - self._before.get(key, 0.0)
+                out[names.get(key, key)] = {"total_s": s, "count": n,
+                                            "mean_ms": 1e3 * s / n}
+        return out
 
     def _finish(self, summary: dict) -> dict:
-        summary["stage_timings"] = self.timer.summary()
+        self._clock.lap("outputs")
+        summary["stage_timings"] = self._stage_timings()
         with open(os.path.join(self.cfg.output_dir, "metrics.json"), "w") as f:
             json.dump(summary, f, indent=2)
         return summary
@@ -389,19 +446,22 @@ class System:
         default; ``cfg.monocular`` switches to the essential + scale-chain
         variant."""
         cfg = self.cfg
-        with self.timer.stage("decode"):
-            frames = list(self._frames(entries))
+        clock = self._clock
+        frames = list(self._frames(entries))
         grays = np.stack([g for g, _ in frames])
         depths = np.stack([d for _, d in frames])
+        clock.lap("decode")
 
         t0 = time.perf_counter()
-        with self._stage("offline_pipeline"):
-            # the pipeline's own capacities, as the JAX System runs it: the
-            # padded keyframe capacity changes the order of the solvers'
-            # sums, so another capacity would compute another map
-            ms, outs = run_offline_pipeline(
-                self.cam, grays, depths, cfg.tracking, device=self.device,
-                orb_kwargs=self._orb_kwargs, monocular=cfg.monocular)
+        clock.begin("offline_pipeline")
+        # the pipeline's own capacities, as the JAX System runs it: the
+        # padded keyframe capacity changes the order of the solvers' sums,
+        # so another capacity would compute another map
+        ms, outs = run_offline_pipeline(
+            self.cam, grays, depths, cfg.tracking, device=self.device,
+            orb_kwargs=self._orb_kwargs, monocular=cfg.monocular)
+        clock.lap("offline_pipeline")
+        clock.begin("outputs")
         t_scan = time.perf_counter() - t0
         self._check_finite(outs.pose, "the offline pipeline's output")
         self.tracker.ms = ms
@@ -435,17 +495,20 @@ class System:
         dev = self.device
         jsonl = (JsonlWriter(os.path.join(cfg.output_dir, "frames.jsonl"))
                  if cfg.metrics_jsonl else None)
+        clock = self._clock
+        clock.begin("track")
         t_start = time.perf_counter()
         try:
             for fid, (e, (gray, depth)) in enumerate(
                     zip(entries, self._frames(entries))):
-                with self._stage("extract"):
-                    px, resp, desc, valid = self.extractor.extract(gray)
+                clock.lap("decode")
+                px, resp, desc, valid = self.extractor.extract(gray)
+                clock.lap("extract")
                 d = sample_depth_at(px, valid, depth)
                 obs = FrameObs(*(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
                                  for x in (px, resp, desc, valid, d)))
-                with self._stage("track"):
-                    res = self.tracker.process(fid, e.timestamp, gray, obs)
+                res = self.tracker.process(fid, e.timestamp, gray, obs)
+                clock.lap("track")
                 if cfg.debug_nans and res.pose_T_cw is not None and not np.isfinite(
                         res.pose_T_cw).all():
                     raise FloatingPointError(f"non-finite pose in frame {fid}")
@@ -456,6 +519,7 @@ class System:
             if jsonl:
                 jsonl.close()
         wall = time.perf_counter() - t_start
+        clock.begin("outputs")
 
         summary = self._write_outputs(entries, wall)
         summary["decode_time_s"] = self._decode_s
@@ -483,26 +547,29 @@ class System:
             log.info("Resuming from %s at frame id %d", cfg.resume_from,
                      scan.frame0)
         buf_g, buf_d = [], []
+        clock = self._clock
+        clock.begin("scan")
 
         def flush():
             if not buf_g:
                 return
-            with self._stage("upload"):
-                g = torch.from_numpy(np.stack(buf_g)).to(self.device)
-                d = torch.from_numpy(np.stack(buf_d)).to(self.device)
+            clock.lap("decode")
+            g = torch.from_numpy(np.stack(buf_g)).to(self.device)
+            d = torch.from_numpy(np.stack(buf_d)).to(self.device)
+            count_sync(2)           # the copies in
+            clock.span("upload")
             buf_g.clear()
             buf_d.clear()
-            with self._stage("scan_dispatch"):
-                out = scan.feed(g, d)
+            out = scan.feed(g, d)
             self._check_finite(out.pose, f"the chunk ending at frame "
                                          f"{scan.next_frame - 1}")
+            clock.lap("scan")
 
         t0 = time.perf_counter()
         # the prefetcher may run a whole chunk ahead of the scan
         frames = iter(self._frames(entries, queue_depth=scan.chunk))
         while True:
-            with self.timer.stage("decode_wait"):
-                frame = next(frames, None)
+            frame = next(frames, None)
             if frame is None:
                 break
             buf_g.append(frame[0])
@@ -512,8 +579,10 @@ class System:
         flush()
         if scan.state is None:
             raise RuntimeError("the sequence has no frames")
+        clock.begin("outputs")
         outs = scan.outputs()
         o = {f: getattr(outs, f).cpu().numpy() for f in outs._fields}
+        count_sync(len(o))
         t_scan = time.perf_counter() - t0   # decode is inside this
         self.tracker.ms = scan.state.ms     # the final map (global BA, snapshot)
         self._archive = scan.archive
@@ -576,7 +645,6 @@ class System:
     # ------------------------------------------------------------------
     def _write_outputs(self, entries, wall: float) -> dict:
         cfg = self.cfg
-        t_out = time.perf_counter()
         ts, mats, gt_t, gt_T = [], [], [], []
         for e, r in zip(entries, self.results):
             if r.pose_T_cw is None:
@@ -589,6 +657,7 @@ class System:
         traj.write_tum_trajectory(traj_path, ts, mats)
 
         ms = self.tracker.ms
+        count_sync(2)           # the two counts
         summary = {
             "sequence": cfg.sequence,
             "n_frames": len(self.results),
@@ -609,8 +678,11 @@ class System:
             summary["rpe_rot_rmse"] = rpe_r
 
         if cfg.run_global_ba:
-            with self._stage("global_ba"):
-                summary["global_ba"] = self._run_global_ba()
+            self._clock.lap("outputs")
+            self._clock.begin("gba")
+            summary["global_ba"] = self._run_global_ba()
+            self._clock.lap("gba")
+            self._clock.begin("outputs")
 
         if cfg.dump_overlays > 0:
             from ..eval.overlay import dump_run_overlays
@@ -629,10 +701,6 @@ class System:
             ply_path = os.path.join(cfg.output_dir, "map.ply")
             summary["map_ply_points"] = export_snapshot_ply(snap_path, ply_path)
             summary["map_ply"] = ply_path
-        # writing the files, without the solve
-        self.timer.totals["outputs"] = (time.perf_counter() - t_out
-                                        - self.timer.totals.get("global_ba", 0.0))
-        self.timer.counts["outputs"] = 1
         log.info("Summary: %s", summary)
         return summary
 
@@ -644,7 +712,7 @@ class System:
         evicted, the solve covers every keyframe ever made."""
         ms2, gba = run_global_ba(
             self.tracker.ms, self.cam, self.cfg.tracking, self._archive,
-            self.cfg.global_ba_iterations, self.device)
+            self.cfg.global_ba_iterations, self.device, DISPARITY_BF)
         self.tracker.ms = ms2
         ts_by_id = {r.frame_id: r.timestamp for r in self.results}
         ids, poses = gba.pop("keyframe_ids"), gba.pop("keyframe_poses")

@@ -46,6 +46,7 @@ from ..models.orb_torch import orb_extract
 from ..ops.camera import CameraParams, backproject, project_pinhole
 from ..ops.se3 import Pose, identity_pose, matrix_to_quat, se3_compose, se3_matrix
 from ..utils.config import TrackingOptions
+from ..utils.logging import span
 from . import mapstate as msl
 from . import stages
 from .mapstate import FREE, MapState
@@ -319,6 +320,7 @@ def build_scan_step(
         m_raw = matching.knn2_from_bits(st.kf_bits, st.kf_pop, st.kf_fvalid,
                                         bits, pop, obs.valid)
         m = matching.reference_distance_filter(m_raw)
+        span("match")
         pts2d = obs.px[m.idx]
         pvalid = m.valid & st.kf_lm_valid
         sol = pnp_prior(cam, st.kf_lm_pts, pts2d, pvalid, st.cur_pose, thr,
@@ -391,6 +393,7 @@ def build_scan_step(
         io = st.init_obs
         m_raw = matching.knn2_ratio_match(io.desc, io.valid, obs.desc, obs.valid)
         m = matching.reference_distance_filter(m_raw)
+        span("match")
         px_m = obs.px[m.idx]
         flags = [m.valid.sum(), stages.parallax_px(io.px, obs.px, m)]
         if opts.rgbd_init:
@@ -648,8 +651,8 @@ def resume_state(ms: MapState) -> ScanState:
 def extract_sequence(images_u8: torch.Tensor, depths_m: torch.Tensor,
                      orb_kwargs: dict, chunk: int = 8):
     """ORB, feature depth, image statistics and descriptor bit planes of
-    every frame, in chunks of ``chunk`` frames (K1 runs once per chunk).
-    Returns (FrameObs [T,...], gray mean [T], gray std [T], bits
+    every frame, in chunks of ``chunk`` frames (K1 runs once per chunk);
+    ends the stage clock's ``orb`` span. Returns (FrameObs [T,...], gray mean [T], gray std [T], bits
     [T,N,256] bf16, popcounts [T,N])."""
     parts = []
     for i in range(0, images_u8.shape[0], chunk):
@@ -663,18 +666,23 @@ def extract_sequence(images_u8: torch.Tensor, depths_m: torch.Tensor,
         parts.append((px, resp, desc, valid, dfeat, mean, std, bits, pop))
     px, resp, desc, valid, dfeat, mean, std, bits, pop = (
         torch.cat(p) for p in zip(*parts))
+    span("orb")
     return (FrameObs(px=px, response=resp, desc=desc, valid=valid, depth=dfeat),
             mean, std, bits, pop)
 
 
 def _scan_frames(step, st: ScanState, frame0: int, obs: FrameObs, bits, pop,
                  mean: list, std: list):
-    """The serial loop over pre-extracted frames: (final state, records)."""
+    """The serial loop over pre-extracted frames: (final state, records).
+    Each frame ends the stage clock's ``step`` span: what its step ran after
+    its last ``match``, ``ransac`` or ``gn`` span (the keyframe decision and
+    event, local BA, the record)."""
     recs = []
     for i in range(len(mean)):
         st, rec = step(st, (frame0 + i, _frame_obs(obs, i), bits[i], pop[i],
                             mean[i], std[i]))
         recs.append(rec)
+        span("step")
     return st, recs
 
 

@@ -80,7 +80,8 @@ class StageClock:
     nothing. Otherwise:
 
     - ``lap(stage)`` synchronizes the device and adds the seconds since the
-      previous lap to ``timings[stage]``;
+      previous lap to ``timings[stage]``, counting the clock's laps of each
+      stage in ``laps``;
     - ``span(name)`` adds the host seconds since the previous lap or span to
       ``timings["<stage>/<name>"]``, ``stage`` being the one ``begin``
       opened, without a synchronize: a stage's spans tile it from its
@@ -100,6 +101,7 @@ class StageClock:
         self.device = device
         self.stage = None
         self.syncs = 0
+        self.laps: dict[str, int] = {}
         self.t0 = self.t_span = self._now() if timings is not None else 0.0
 
     def _now(self) -> float:
@@ -118,6 +120,7 @@ class StageClock:
             return
         t = self._now()
         self._add(stage, t - self.t0)
+        self.laps[stage] = self.laps.get(stage, 0) + 1
         self.t0 = self.t_span = t
 
     def span(self, name: str) -> None:

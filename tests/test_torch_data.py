@@ -138,6 +138,13 @@ def test_gray_conversion_equals_cv2():
                                   cv2.cvtColor(rgb, cv2.COLOR_RGB2GRAY))
 
 
+def test_gray_conversion_equals_cv2_on_every_colour():
+    rgb = np.stack(np.meshgrid(*[np.arange(256, dtype=np.uint8)] * 3,
+                               indexing="ij"), -1).reshape(4096, 4096, 3)
+    np.testing.assert_array_equal(png.rgb_to_gray(rgb),
+                                  cv2.cvtColor(rgb, cv2.COLOR_RGB2GRAY))
+
+
 # ---------------------------------------------------------------------------
 # sequences on disk
 # ---------------------------------------------------------------------------

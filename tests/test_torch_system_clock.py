@@ -3,9 +3,10 @@ the benchmark's reference wrote (24 frames of the fr1/desk loop taken 8
 apart, an 8-slot ring, so the global BA solves the archive's union map):
 with ``timings`` a ``--pipeline scan --run_global_ba`` run writes the
 stage keys, the spans of the global BA and the host-sync count, and its
-stage keys tile the run; without ``timings`` it writes nothing and returns
-what it returned before; the Python loader returns the written arrays bit
-for bit."""
+stage keys tile the run, and it counts the frames its loader's workers had
+decoded when the scan asked for them; without ``timings`` it writes nothing
+and returns what it returned before; the Python loader returns the written
+arrays bit for bit."""
 
 import json
 import time
@@ -74,9 +75,10 @@ def test_the_python_loader_returns_the_written_arrays(written):
 def test_timings_hold_the_stage_clock_and_tile_the_run(runs):
     (system, summary, wall), _, timings = runs
     assert summary["global_ba"]["archived_keyframes"] > 8
-    for k in (*STAGES, "gba/harvest", "gba/union", "gba/solve", "#host_syncs"):
+    counts = ("#host_syncs", "#decode_ahead")
+    for k in (*STAGES, "gba/harvest", "gba/union", "gba/solve", *counts):
         assert k in timings, k
-    assert all(k in STAGES or "/" in k or k == "#host_syncs" for k in timings)
+    assert all(k in STAGES or "/" in k or k in counts for k in timings)
     total = sum(timings[k] for k in STAGES)
     assert abs(total - wall) <= 0.01 * wall, (total, wall)
     spans = sum(v for k, v in timings.items() if k.startswith("gba/"))
@@ -96,3 +98,13 @@ def test_without_timings_nothing_is_kept_and_the_run_is_the_same(runs):
     for k in ("n_tracked", "n_keyframes", "n_landmarks", "ate_rmse"):
         assert sa[k] == sb[k], k
     assert sa["global_ba"]["final_cost"] == sb["global_ba"]["final_cost"]
+
+
+def test_the_scan_counts_the_frames_its_loader_decoded_ahead(runs):
+    (_, summary, wall), _, timings = runs
+    n = summary["n_frames"]
+    assert summary["loader"] == "python"
+    assert timings["#decode_ahead"] == summary["decode_ahead"]
+    assert 0 <= timings["#decode_ahead"] <= n == 24
+    # the count is no stage: the stage keys alone tile the run
+    assert abs(sum(timings[k] for k in STAGES) - wall) <= 0.01 * wall

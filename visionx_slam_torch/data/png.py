@@ -23,6 +23,7 @@ import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _GRAY, _RGB = 0, 2       # PNG colour types
+_GRAY_WEIGHTS = np.array([9798, 19235, 3735], np.int32)    # R, G, B (of 2^15)
 
 
 def _chunks(data: bytes):
@@ -63,12 +64,12 @@ def _unfilter(raw: np.ndarray, height: int, stride: int, bpp: int) -> np.ndarray
         raise ValueError("PNG: unknown scanline filter")
     out = np.empty((height, stride), np.uint8)
     prior = np.zeros(stride, np.uint8)
-    y = 0
-    while y < height:
+    # runs of rows with one filter: a run starts where the filter changes,
+    # and an Average or Paeth row is a run of its own
+    starts = np.flatnonzero(np.r_[True, (ftype[1:] != ftype[:-1])
+                                  | (ftype[1:] > 2)]).tolist()
+    for y, end in zip(starts, starts[1:] + [height]):
         f = int(ftype[y])
-        end = y + 1
-        while end < height and ftype[end] == f and f in (0, 1, 2):
-            end += 1                      # a run of rows with one filter
         block = lines[y:end, 1:]
         if f == 0:
             out[y:end] = block
@@ -84,7 +85,6 @@ def _unfilter(raw: np.ndarray, height: int, stride: int, bpp: int) -> np.ndarray
             out[y] = np.frombuffer(
                 row(block[0].tobytes(), prior.tobytes(), bpp), np.uint8)
         prior = out[end - 1]
-        y = end
     return out
 
 
@@ -114,7 +114,10 @@ def read_png(path: str) -> np.ndarray:
             f"interlace {interlace}): {path}")
     bpp = {(8, _GRAY): 1, (8, _RGB): 3, (16, _GRAY): 2}[(depth, colour)]
     stride = width * bpp
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    # the whole image in one inflate call: each call of a growing buffer
+    # gives the interpreter lock up and takes it back
+    raw = np.frombuffer(zlib.decompress(b"".join(idat),
+                                        bufsize=height * (1 + stride)), np.uint8)
     if raw.size != height * (1 + stride):
         raise ValueError(f"PNG data of the wrong length: {path}")
     px = _unfilter(raw, height, stride, bpp)
@@ -154,7 +157,9 @@ def write_png(path: str, img: np.ndarray, level: int = 3) -> None:
 
 def rgb_to_gray(rgb: np.ndarray) -> np.ndarray:
     """[H,W,3] uint8 (RGB order) -> [H,W] uint8, OpenCV's fixed-point
-    weights."""
-    c = rgb.astype(np.int32)
-    return ((9798 * c[..., 0] + 19235 * c[..., 1] + 3735 * c[..., 2] + 16384)
-            >> 15).astype(np.uint8)
+    weights, in four numpy calls (each gives the interpreter lock up and
+    takes it back once)."""
+    s = np.matmul(rgb, _GRAY_WEIGHTS)
+    s += 16384
+    s >>= 15
+    return s.astype(np.uint8)

@@ -34,6 +34,7 @@ import torch
 
 from ..convert import mapstate_from_numpy, mapstate_to_numpy
 from ..data import tum
+from ..data.prefetch import PythonPrefetcher
 from ..eval import trajectory as traj
 from ..models.global_ba import GlobalBAOptions, global_ba, map_reproj_error
 from ..models.pair_ba import pair_ba
@@ -61,6 +62,10 @@ log = logging.getLogger("vxs.system")
 # standard deviation of the Kinect's depth, 1.425e-3 z^2 m (Khoshelham and
 # Elberink, Sensors 2012), as a keypoint's row is one a pixel
 DISPARITY_BF = 1 / 1.425e-3
+
+# the count of frames the Python loader's workers had decoded when the
+# consumer asked for them, added to ``timings`` at the end of a run
+DECODE_AHEAD = "#decode_ahead"
 
 # ``summary["stage_timings"]``'s names of the stage clock's keys
 _TIMING_NAMES = {"gba": "global_ba", "scan": "scan_dispatch",
@@ -310,13 +315,14 @@ class System:
     reports this run's laps as ``summary["stage_timings"]``. ``timings``:
     if a dict is given, the clock is kept in it, values accumulating over
     runs; without it the clock's dict is the run's own. The scan
-    pipeline's keys: ``decode`` (the wait for and the decoding of a chunk's
-    files) and ``scan`` (its upload, the host span ``scan/upload``, and
+    pipeline's keys: ``decode`` (the wait for a chunk's decoded files)
+    and ``scan`` (its upload, the host span ``scan/upload``, and
     ``ScanStream.feed``), each lapped once a chunk; ``gba`` (the global BA,
     with the host spans ``gba/harvest``, ``gba/union`` and ``gba/solve``
     inside it); ``outputs`` (the frame results read back and every output
-    file); and ``#host_syncs``. The keys tile the run. Spans that the
-    scan's own functions end land there too: ``scan/orb`` (a chunk's ORB),
+    file); ``#host_syncs``; and, with the Python loader, ``#decode_ahead``
+    (the frames its workers had decoded when asked for). The stage keys
+    tile the run. Spans that the scan's own functions end land there too: ``scan/orb`` (a chunk's ORB),
     then a frame's ``scan/match``, ``scan/ransac``, ``scan/gn`` and
     ``scan/step`` (the rest of its step). The offline pipeline laps ``decode`` and
     ``offline_pipeline``, the host path ``decode``, ``extract`` and
@@ -354,8 +360,8 @@ class System:
         self.tracker = Tracker(self.cam, cfg.tracking, device=cfg.device)
         self.results: list[FrameResult] = []
         self.loader_used = ""    # "native" or "python", once frames were read
-        self._decode_s = 0.0     # seconds spent decoding (worker threads' sum
-                                 # with the native loader)
+        self._decode_s = 0.0     # seconds spent decoding (the worker threads' sum)
+        self._decode_ahead = None  # a run's frames found decoded (Python loader)
         self._frame0 = 0         # id offset when resuming from a snapshot
         # keyframes harvested at chunk boundaries of the scan path (the ring
         # evicts; the archive keeps every keyframe so --run_global_ba can
@@ -398,6 +404,7 @@ class System:
         timings = self.timings if self.timings is not None else {}
         self._before = dict(timings)
         self._clock = StageClock(timings, self.device)
+        self._decode_ahead = None
         with self._clock.active():
             if pipeline == "scan":
                 summary = self._run_scan(entries)
@@ -406,6 +413,8 @@ class System:
             else:
                 summary = self._run_host(entries)
             self._clock.lap("outputs")
+        if self._decode_ahead is not None:
+            timings[DECODE_AHEAD] = timings.get(DECODE_AHEAD, 0) + self._decode_ahead
         return summary
 
     def _stage_timings(self) -> dict:
@@ -485,6 +494,7 @@ class System:
         summary = self._write_outputs(entries, t_scan)
         summary["scan_time_s"] = t_scan
         summary["decode_time_s"] = self._decode_s
+        summary["decode_ahead"] = self._decode_ahead
         summary["scan_fps"] = len(entries) / max(t_scan, 1e-9)
         return self._finish(summary)
 
@@ -498,9 +508,9 @@ class System:
         clock = self._clock
         clock.begin("track")
         t_start = time.perf_counter()
+        frames = self._frames(entries)
         try:
-            for fid, (e, (gray, depth)) in enumerate(
-                    zip(entries, self._frames(entries))):
+            for fid, (e, (gray, depth)) in enumerate(zip(entries, frames)):
                 clock.lap("decode")
                 px, resp, desc, valid = self.extractor.extract(gray)
                 clock.lap("extract")
@@ -516,6 +526,7 @@ class System:
                 if jsonl:
                     jsonl.write(_frame_record(res))
         finally:
+            frames.close()
             if jsonl:
                 jsonl.close()
         wall = time.perf_counter() - t_start
@@ -523,6 +534,7 @@ class System:
 
         summary = self._write_outputs(entries, wall)
         summary["decode_time_s"] = self._decode_s
+        summary["decode_ahead"] = self._decode_ahead
         summary["host_reads_per_frame"] = (
             self.tracker.host_reads / max(len(self.results), 1))
         log.info("host path: %.2f device reads per frame",
@@ -532,8 +544,8 @@ class System:
     # ------------------------------------------------------------------
     def _run_scan(self, entries) -> dict:
         """The online scan, streamed: frames are decoded into chunks (by
-        the native prefetcher's threads while the scan of the previous chunk
-        runs, where the native loader is there) and each chunk is uploaded
+        the loader's worker threads while the scan of the previous chunk
+        runs) and each chunk is uploaded
         and scanned as it fills; the whole sequence is never held. Frame
         results are rebuilt from the stacked outputs, so the reporting is
         that of the host path."""
@@ -566,16 +578,16 @@ class System:
             clock.lap("scan")
 
         t0 = time.perf_counter()
-        # the prefetcher may run a whole chunk ahead of the scan
-        frames = iter(self._frames(entries, queue_depth=scan.chunk))
-        while True:
-            frame = next(frames, None)
-            if frame is None:
-                break
-            buf_g.append(frame[0])
-            buf_d.append(frame[1])
-            if len(buf_g) == scan.chunk:
-                flush()
+        # the prefetcher runs a whole chunk ahead of the scan
+        frames = self._frames(entries, queue_depth=scan.chunk)
+        try:
+            for gray, depth in frames:
+                buf_g.append(gray)
+                buf_d.append(depth)
+                if len(buf_g) == scan.chunk:
+                    flush()
+        finally:
+            frames.close()
         flush()
         if scan.state is None:
             raise RuntimeError("the sequence has no frames")
@@ -608,16 +620,19 @@ class System:
         summary = self._write_outputs(entries, t_scan)
         summary["scan_time_s"] = t_scan
         summary["decode_time_s"] = self._decode_s
+        summary["decode_ahead"] = self._decode_ahead
         summary["scan_fps"] = len(entries) / max(t_scan, 1e-9)
         summary["scan_stats"] = scan.stats()
         return self._finish(summary)
 
     # ------------------------------------------------------------------
     def _frames(self, entries, queue_depth: int = 4):
-        """Yield (gray, depth_m) per entry: through the native C++ decode +
-        prefetch pipeline where its library is there or can be built (its
-        threads decode up to ``queue_depth`` frames ahead of the consumer),
-        else through the Python loader, with a warning."""
+        """Yield (gray, depth_m) per entry, decoded up to ``queue_depth``
+        frames ahead of the consumer by two worker threads: those of the
+        native C++ decode + prefetch pipeline where its library is there or
+        can be built, else those of the Python loader's ``PythonPrefetcher``
+        (with a warning), which count the frames found decoded in
+        ``_decode_ahead``. Close the generator to stop the workers."""
         if self.cfg.loader == "native":
             from ..data import native_loader
 
@@ -636,11 +651,15 @@ class System:
                 return
             log.warning("native loader unavailable; falling back to python")
         self.loader_used = "python"
-        for e in entries:
-            t0 = time.perf_counter()
-            frame = tum.load_rgb_gray(e.rgb_path), tum.load_depth_m(e.depth_path)
-            self._decode_s += time.perf_counter() - t0
-            yield frame
+        pf = PythonPrefetcher([e.rgb_path for e in entries],
+                              [e.depth_path for e in entries],
+                              queue_depth=queue_depth, n_threads=2)
+        try:
+            yield from pf
+        finally:
+            pf.close()
+            self._decode_s += pf.decode_seconds()
+            self._decode_ahead = (self._decode_ahead or 0) + pf.ready
 
     # ------------------------------------------------------------------
     def _write_outputs(self, entries, wall: float) -> dict:

@@ -48,10 +48,7 @@ order, so ``global_ba``, local BA and the scan are checked to repeat bit
 for bit. Then the measurement layer: the port's bench entry
 (``python -m visionx_slam_torch.bench``, the headline and the six
 BASELINE configs) in a process of its own, its last line parsed and every
-config held to the limits of PERF.md Section 2; the roofline report over
-48 frames; and the profiling knobs (``orb_extract``'s ``profile_stage`` and
-``use_kernel``, the scan's ``stage_limit``) with the two profilers that
-turn them.
+config held to the limits of PERF.md Section 2.
 
 Run from the repository root: ``python3 chip_smoke.py [--frames N]``.
 It exits non-zero (and prints no result) without a CUDA device or when any
@@ -167,17 +164,24 @@ def _kernel_record(name: str, replaces: str, n_bytes: int, n_ops: int,
 
 def check_k1(grays_u8) -> dict:
     """K1 against its plain version, bit for bit and to the Pallas test's
-    tolerances, on the rendered 8-frame atlas and the edge shapes; returns
-    the kernel's result record."""
+    tolerances, on the rendered 8-frame atlas and the edge shapes, and
+    ``orb_extract`` of the 8 frames with ``use_kernel`` 0 and 1 equal to its
+    default run; returns the kernel's result record."""
     import torch
 
-    from visionx_slam_torch.models.orb_torch import build_atlas
+    from visionx_slam_torch.models.orb_torch import build_atlas, orb_extract
     from visionx_slam_torch.ops import detect
     from visionx_slam_torch.tools import k1_bench
     from visionx_slam_torch.utils import flops
 
-    atlas, mask = build_atlas(torch.as_tensor(grays_u8).cuda())
+    g8 = torch.as_tensor(grays_u8).cuda()
+    atlas, mask = build_atlas(g8)
     max_err = k1_bench.check_k1(k1_bench.exact_cases(atlas, mask)[0])
+    full = orb_extract(g8)
+    for use_kernel in (0, 1):
+        _require(all(torch.equal(x, y) for x, y in zip(
+            orb_extract(g8, use_kernel=use_kernel), full)),
+            f"orb_extract(use_kernel={use_kernel}) equals its default run")
     ms_k = _time_ms(lambda: detect.fast_harris_blur(atlas, mask))
     ms_p = _time_ms(lambda: detect.fast_harris_blur_reference(atlas, mask))
     print(f"K1 {tuple(atlas.shape)}: {ms_k:.4f} ms, plain {ms_p:.4f} ms "
@@ -1780,119 +1784,6 @@ def check_bench(b: dict) -> None:
              f"bench config 5: {c5}")
 
 
-def run_roofline(frames: int = 48) -> dict:
-    """The roofline tool's report over ``frames`` bench frames."""
-    from visionx_slam_torch.ops import detect
-    from visionx_slam_torch.tools import roofline
-
-    detect.launches = 0
-    t0 = time.perf_counter()
-    out = roofline.report(frames, runs=2, device="cuda")
-    out["seconds"] = time.perf_counter() - t0
-    out["k1_launches"] = detect.launches
-    return out
-
-
-def check_roofline(r: dict) -> None:
-    import math
-
-    names = [row["stage"] for row in r["stages"]]
-    _require(names == ["extract", "match", "pnp_prior", "kf_event(insert+depth_lm+tri)",
-                       "local_ba(per GN iter)"], f"roofline stages {names}")
-    for row in r["stages"]:
-        # local BA's row is its count per iteration times the iterations
-        # measured, none where every feature has depth
-        idle = row["stage"].startswith("local_ba") and r["ba_iters_measured"] == 0
-        _require(row["ms_per_frame"] is not None and row["ms_per_frame"] > 0
-                 and (idle or (row["flops_per_frame"] > 0
-                               and row["bytes_per_frame"] > 0)),
-                 f"roofline stage {row}")
-    _require(all(math.isfinite(r[k]) for k in (
-        "t_full_ms_per_frame", "t_extract_ms_per_frame", "attributed_ms_per_frame",
-        "residual_glue_ms_per_frame", "ba_iters_measured"))
-             and r["events_per_frame"] > 0 and _finite_numbers(r["summary"]),
-             f"roofline totals {r['summary']}")
-
-
-def run_knobs(grays, depths) -> dict:
-    """The profiling knobs at full width: ``orb_extract``'s ``profile_stage``
-    0-3 and ``use_kernel`` on the 8-frame chunk, the scan's ``stage_limit``
-    0, 1, 3, 4 over the first 48 frames, then the two profilers that turn
-    them (``profile_stages``, ``profile_scan``) at 16 frames."""
-    import torch
-
-    from visionx_slam_torch.models.orb_torch import orb_extract
-    from visionx_slam_torch.ops import detect
-    from visionx_slam_torch.tools import profile_scan, profile_stages
-    from visionx_slam_torch.tracking.scan_pipeline import INIT, run_scan_pipeline
-    from visionx_slam_torch.utils.config import TrackingOptions
-
-    g8 = torch.as_tensor(grays[:8]).cuda()
-    full = orb_extract(g8)
-    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))
-    detect.launches = 0
-    stages = {k: orb_extract(g8, profile_stage=k) for k in range(4)}
-    res = {"orb_k1_launches": detect.launches}
-    res["stage3_is_full_extract"] = same(stages[3], full)
-    px0, resp0, desc0, valid0 = stages[0]
-    res["stage0_dense_only"] = bool(
-        torch.isfinite(resp0[:, 0]).all() and (resp0[:, 0] > 0).all()
-        and not resp0[:, 1:].any() and not px0.any() and not desc0.any()
-        and not valid0.any())
-    res["stages12_zero_descriptors"] = all(
-        torch.equal(stages[k][1], full[1]) and torch.equal(stages[k][3], full[3])
-        and not stages[k][2].any() for k in (1, 2))
-    res["use_kernel_0_equals_k1"] = same(orb_extract(g8, use_kernel=0), full)
-    res["use_kernel_1_equals_k1"] = same(orb_extract(g8, use_kernel=1), full)
-
-    cam = _camera()
-    g = torch.as_tensor(grays[:48]).cuda()
-    d = torch.as_tensor(depths[:48]).cuda()
-    res["stage_limit"] = {}
-    for k in (0, 1, 3, 4):
-        stats: dict = {}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st, out = run_scan_pipeline(cam, g, d, TrackingOptions(), stage_limit=k,
-                                    device="cuda", stats=stats)
-        torch.cuda.synchronize()
-        res["stage_limit"][k] = {
-            "fps": len(g) / (time.perf_counter() - t0),
-            "host_syncs": stats["host_syncs"],
-            "tracked": int(out.tracked.sum()),
-            "matches": int(out.n_matches.sum()),
-            "keyframes": int(out.is_keyframe.sum()),
-            "state_untouched": st.tstate == INIT and st.kf_cursor == 0}
-    detect.launches = 0
-    res["profile_stages"] = profile_stages.profile(16, runs=1)
-    res["profile_scan"] = profile_scan.profile(16, runs=1)
-    res["profilers_k1_launches"] = detect.launches
-    return res
-
-
-def check_knobs(k: dict) -> None:
-    _require(k["orb_k1_launches"] == 4, f"K1 once per profile stage: {k['orb_k1_launches']}")
-    for name in ("stage3_is_full_extract", "stage0_dense_only",
-                 "stages12_zero_descriptors", "use_kernel_0_equals_k1",
-                 "use_kernel_1_equals_k1"):
-        _require(k[name], f"orb_extract knobs: {name}")
-    sl = k["stage_limit"]
-    for lim, r in sl.items():
-        _require(r["state_untouched"] and r["keyframes"] == 0,
-                 f"stage_limit {lim} leaves the map and the state machine: {r}")
-        if lim != 1:
-            _require(r["host_syncs"] == 1, f"stage_limit {lim} reads nothing per "
-                     f"frame: {r['host_syncs']} reads")
-    _require(sl[0]["tracked"] == 48 and sl[0]["matches"] > 0,
-             f"stage_limit 0 records every frame's features: {sl[0]}")
-    # the keyframe cache stays empty, as in the JAX package's profile
-    _require(sl[3]["matches"] == 0 and sl[4]["matches"] == 0,
-             f"stage_limit 3 and 4 match against the empty cache: {sl[3]}, {sl[4]}")
-    _require(all(v > 0 for v in k["profile_stages"].values())
-             and all(v > 0 for v in k["profile_scan"].values()),
-             "the profilers timed every stage")
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=240)
@@ -2364,18 +2255,6 @@ def main() -> int:
           f"{cfg['5_batched_offline']['aggregate_fps']} aggregate fps; "
           f"{bench['k1_launches']} K1 launches ({card})", flush=True)
 
-    # ---- 19. the roofline report (config 1) ----
-    roof = run_roofline()
-    print("roofline " + json.dumps(roof) + f" ({card})", flush=True)
-    check_roofline(roof)
-    from visionx_slam_torch.tools import roofline as roofline_tool
-    print(roofline_tool.markdown(roof), flush=True)
-
-    # ---- 20. the profiling knobs ----
-    knobs = run_knobs(grays, depths)
-    print("knobs " + json.dumps(knobs) + f" ({card})", flush=True)
-    check_knobs(knobs)
-
     k1["launches"] = scan["k1_launches"]
     k1b["launches"] = scan["k1b_launches"]
     k1["launches_by_path"] = {
@@ -2399,9 +2278,7 @@ def main() -> int:
         "multi_device_offline": off["k1_launches"],
         "multi_device_dryrun": md["dryrun"]["k1_launches"],
         "entry": md["entry"]["k1_launches"],
-        "bench": bench["k1_launches"], "roofline": roof["k1_launches"],
-        "profile_stage": knobs["orb_k1_launches"],
-        "profilers": knobs["profilers_k1_launches"]}
+        "bench": bench["k1_launches"]}
     k1b["launches_by_path"] = {"scan": scan["k1b_launches"]}
     gn["launches"] = scan["gn_launches"]
     gn["launches_by_path"] = {
@@ -2409,7 +2286,7 @@ def main() -> int:
         "lanes": lanes["gn_launches"], "mono_offline": mono["gn_launches"],
         "mono_scan": mscan["gn_launches"]}
 
-    # ---- 21. result ----
+    # ---- 19. result ----
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s "
           f"({card})", flush=True)
     print(json.dumps({"kernels": [k1, k1b, gn]}))

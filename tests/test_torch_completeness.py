@@ -45,6 +45,10 @@ EXCEPTIONS = {
         "the Pallas switch; the port's use_kernel picks K1 or its plain version",
     ("models/orb_jax.py", "orb_extract", "patch_cell"):
         "the TPU gather's tiling; the one-hot selection is exact without it",
+    ("models/orb_jax.py", "orb_extract", "profile_stage"):
+        "the JAX package times a jitted step by compiling shortened copies "
+        "of it; the port times the real step from inside with the stage "
+        "clock's spans",
     ("ops/camera.py", "make_camera", "dtype"):
         "no caller passes it; the port's camera holds float32-rounded floats",
     ("ops/pallas_detect.py", "PAD_K"):
@@ -68,6 +72,16 @@ EXCEPTIONS = {
         "run_scan_pipeline takes orb_kwargs",
     ("tracking/scan_pipeline.py", "build_scan_step", "batched"):
         "marks a step run under jax.vmap; the port runs each lane's loop",
+    ("tracking/scan_pipeline.py", "build_scan_step", "stage_limit"):
+        "the JAX package times a jitted step by compiling shortened copies "
+        "of it; the port times the real step from inside with the stage "
+        "clock's spans",
+    ("tracking/scan_pipeline.py", "run_scan_pipeline", "stage_limit"):
+        "the JAX package times a jitted step by compiling shortened copies "
+        "of it; the port times the real step from inside with the stage "
+        "clock's spans",
+    ("utils/logging.py", "StageTimer"):
+        "the port's System times its stages on StageClock",
     ("utils/flops.py", "xla_cost"):
         "XLA's cost analysis; the port counts aten ops with op_cost",
 }

@@ -2,8 +2,8 @@
 the benchmark's reference wrote (24 frames of the fr1/desk loop taken 8
 apart, an 8-slot ring, so the global BA solves the archive's union map):
 with ``timings`` a ``--pipeline scan --run_global_ba`` run writes the
-stage keys, the spans of the global BA and the host-sync count, and its
-stage keys tile the run, and it counts the frames its loader's workers had
+stage keys, the spans of the scan and of the global BA and the host-sync
+count, and its stage keys tile the run, and it counts the frames its loader's workers had
 decoded when the scan asked for them; without ``timings`` it writes nothing
 and returns what it returned before; the Python loader returns the written
 arrays bit for bit."""
@@ -85,6 +85,16 @@ def test_timings_hold_the_stage_clock_and_tile_the_run(runs):
     assert spans <= timings["gba"]
     # the scan's reads (as ScanStream counts them) are among the syncs
     assert timings["#host_syncs"] > summary["scan_stats"]["host_syncs"] > 0
+
+
+def test_the_scan_spans_tile_the_scan_lap(runs):
+    """The scan's spans split its lap: the upload, a chunk's ORB, and a
+    frame's matching, RANSAC, Gauss-Newton and the rest of its step."""
+    _, _, timings = runs
+    keys = [f"scan/{k}" for k in ("upload", "orb", "match", "ransac", "gn", "step")]
+    for k in keys:
+        assert k in timings and timings[k] >= 0, k
+    assert sum(timings[k] for k in keys) <= timings["scan"]
 
 
 def test_without_timings_nothing_is_kept_and_the_run_is_the_same(runs):

@@ -233,7 +233,6 @@ def orb_extract(
     border: int = 31,
     resize_f32: int = 0,
     use_kernel: int = -1,
-    profile_stage: int = 3,
 ):
     """Full ORB: returns (px [B,S,2] level-0 pixels (x, y), resp [B,S],
     desc [B,S,32] uint8, valid [B,S]) with S = n_slots.
@@ -241,11 +240,7 @@ def orb_extract(
     ``use_kernel`` (the JAX ``use_pallas``): -1 runs the dense passes as
     ``fast_harris_blur`` does (K1 on a CUDA tensor, its plain version on a
     CPU tensor), 0 the plain version on either device, 1 K1 (raises on the
-    CPU). ``profile_stage``, a profiling knob as in the JAX package: 0 = the
-    dense passes only (zero outputs but ``resp[:, 0]``, the sum of the
-    finite scores), 1 = + the per-level selection (zero descriptors), 2 = +
-    patches and orientation (zero descriptors; ``resp`` depends on the
-    angles through ``0 * sum``), 3 = the full extraction."""
+    CPU)."""
     B, H, W = gray_u8.shape
     dev = gray_u8.device
     quotas = _level_quotas(n_features, n_levels, scale_factor)
@@ -265,14 +260,6 @@ def orb_extract(
     else:
         raw, blurred = fast_harris_blur(atlas, mask, fast_threshold)
     score = torch.where(raw > 0.5 * NEG, raw, -math.inf)
-    S = n_slots
-
-    if profile_stage <= 0:
-        resp = torch.zeros((B, S), device=dev)
-        resp[:, 0] = torch.where(torch.isfinite(score), score, 0.0).sum((1, 2))
-        return (torch.zeros((B, S, 2), device=dev), resp,
-                torch.zeros((B, S, 32), dtype=torch.uint8, device=dev),
-                torch.zeros((B, S), dtype=torch.bool, device=dev))
 
     # ---- per-level grid-bucketed top-K: cell argmax, stable top-k ----
     all_yy, all_xx, all_lxy, all_resp = [], [], [], []
@@ -301,9 +288,6 @@ def orb_extract(
     resp = torch.where(valid, top, 0.0)
     xy = torch.cat(all_lxy, 1)
     Q = yy.shape[1]
-    if profile_stage <= 1:
-        return _compact(xy, resp, xy.new_zeros((B, Q, 32), dtype=torch.uint8),
-                        valid, S)
 
     # ---- 31x31 blurred patches by direct gather ----
     # valid keypoints sit >= border px inside their level, so their patches
@@ -318,9 +302,6 @@ def orb_extract(
     # ---- intensity-centroid orientation (f32 accumulation) ----
     m = flat.float() @ wxy                                  # (m10, m01)
     angles = torch.atan2(m[..., 1], m[..., 0])
-    if profile_stage <= 2:
-        return _compact(xy, resp + 0 * angles.sum(-1, keepdim=True),
-                        xy.new_zeros((B, Q, 32), dtype=torch.uint8), valid, S)
 
     # ---- steered BRIEF: exact integer differences of rounded samples ----
     A = BRIEF_BINS
@@ -331,7 +312,7 @@ def orb_extract(
     bits = (va - vb < 0).int().reshape(B, Q, 32, 8)
     weights = 2 ** torch.arange(8, device=dev, dtype=torch.int32)
     desc = (bits * weights).sum(-1).to(torch.uint8)         # LSB first
-    return _compact(xy, resp, desc, valid, S)
+    return _compact(xy, resp, desc, valid, n_slots)
 
 
 def _compact(xy, resp, desc, valid, S: int):

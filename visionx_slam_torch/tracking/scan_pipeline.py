@@ -276,26 +276,13 @@ def build_scan_step(
     n_features_cap: int = 1024,
     kf_capacity: int = 64,
     lm_capacity: int = 1 << 17,
-    stage_limit: int = 2,
     counters: ScanCounters | None = None,
 ):
     """The per-frame step ``step(st, inp) -> (st, FrameRecord)``, closed
     over static options; ``inp`` = (frame_id, obs, bits, pop, gray_mean,
     gray_std) of one frame, the last two host floats. The branches are
     exposed as ``step.init_first``, ``step.init_second``,
-    ``step.track_branch`` and ``step.create_keyframe``.
-
-    ``stage_limit`` is a profiling knob, as in the JAX package: 2 = the
-    full pipeline; 0 = extraction only (the step records the frame from
-    its observations); 1 = extraction + ``track_branch`` (only ``cur_pose``
-    is kept: no init, no keyframe, no map growth); 3 = the matcher against
-    the keyframe cache and the distance filter; 4 = 3 + the prior-tier PnP.
-    3 and 4 run a fixed chain of ops with no branch (the map stays empty,
-    so their values are meaningless, but every frame runs the ops of the
-    steady-state chain). Stages 0, 3 and 4 read nothing from the device in
-    the step."""
-    if stage_limit not in (0, 1, 2, 3, 4):
-        raise ValueError(f"stage_limit must be 0-4, got {stage_limit}")
+    ``step.track_branch`` and ``step.create_keyframe``."""
     W_IMG, H_IMG = img_wh
     N = n_features_cap
     K = kf_capacity
@@ -518,37 +505,8 @@ def build_scan_step(
             **_empty_kf_cache(N, st.kf_bits.device))
 
     # ------------------------------------------------------------------
-    def profile_step(st: ScanState, obs: FrameObs, bits, pop, frame_id: int):
-        """The step at ``stage_limit`` 0, 1, 3 or 4."""
-        zero = torch.zeros((), dtype=torch.int32, device=obs.px.device)
-        tracked, n_matches = obs.valid.any(), obs.valid.sum().to(torch.int32)
-        inliers, parallax, st2 = 0, 0.0, st
-        if stage_limit == 1:
-            st1, n_matches, inliers, parallax, tracked, _, _ = track_branch(
-                st, obs, bits, pop, frame_id)
-            st2 = st._replace(cur_pose=st1.cur_pose)
-        elif stage_limit in (3, 4):
-            m = matching.reference_distance_filter(matching.knn2_from_bits(
-                st.kf_bits, st.kf_pop, st.kf_fvalid, bits, pop, obs.valid))
-            n_matches = m.valid.sum().to(torch.int32)
-            if stage_limit == 4:
-                sol = pnp_prior(cam, st.kf_lm_pts, obs.px[m.idx],
-                                m.valid & st.kf_lm_valid, st.cur_pose, thr,
-                                refine_iters=min(2, opts.pnp_refine_iters))
-                inliers = sol.n_inliers
-                st2 = st._replace(cur_pose=Pose(
-                    torch.where(sol.ok, sol.pose.q, st.cur_pose.q),
-                    torch.where(sol.ok, sol.pose.t, st.cur_pose.t)))
-        return st2, FrameRecord(
-            pose=st2.cur_pose, tracked=tracked, state=st.tstate,
-            n_matches=n_matches, n_inliers=inliers, parallax=parallax,
-            is_keyframe=False, n_keyframes=zero, n_landmarks=zero)
-
-    # ------------------------------------------------------------------
     def step(st: ScanState, inp):
         frame_id, obs, bits, pop, gray_mean, gray_std = inp
-        if stage_limit != 2:
-            return profile_step(st, obs, bits, pop, frame_id)
         was = st.tstate
         was_init_first = was == INIT and not st.have_init
         was_init_second = was == INIT and st.have_init
@@ -724,7 +682,6 @@ def run_scan_pipeline(
     kf_capacity: int = 64,
     lm_capacity: int = 1 << 17,
     orb_kwargs: dict | None = None,
-    stage_limit: int = 2,
     st0: ScanState | None = None,
     frame0: int = 0,
     device="cuda",
@@ -744,7 +701,7 @@ def run_scan_pipeline(
     ctr = ScanCounters(dev)
     step = build_scan_step(cam, opts, (W, H), n_features_cap=n_features_cap,
                            kf_capacity=kf_capacity, lm_capacity=lm_capacity,
-                           stage_limit=stage_limit, counters=ctr)
+                           counters=ctr)
     obs, mean, std, bits, pop = extract_sequence(images, depths, orb_kw)
     stats_host = ctr.read(mean, std) if T else []
     st = st0 if st0 is not None else initial_state(

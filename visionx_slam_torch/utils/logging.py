@@ -1,8 +1,8 @@
 """Logging setup (the reference's Logger component, core/common/logger.{h,cpp}:
 glog to stderr at INFO, colorized). Python logging with a compact glog-like
 format plus optional per-frame JSONL structured metrics (SURVEY.md §5.5),
-the per-stage wall timers of ``System`` and the offline pipeline's stage
-clock with its sub-spans and host-sync counter."""
+and the stage clock that times ``System``'s stages and the offline
+pipeline's, with its sub-spans and host-sync counter."""
 
 from __future__ import annotations
 
@@ -37,35 +37,6 @@ class JsonlWriter:
 
     def close(self) -> None:
         self._f.close()
-
-
-class StageTimer:
-    """Accumulating per-stage wall timers (SURVEY.md §5.1: the reference has
-    only a viewer FPS counter; we time every stage)."""
-
-    def __init__(self):
-        self.totals: dict[str, float] = {}
-        self.counts: dict[str, int] = {}
-
-    @contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def summary(self) -> dict[str, dict[str, float]]:
-        return {
-            k: {
-                "total_s": self.totals[k],
-                "count": self.counts[k],
-                "mean_ms": 1e3 * self.totals[k] / max(self.counts[k], 1),
-            }
-            for k in self.totals
-        }
 
 
 HOST_SYNCS = "#host_syncs"

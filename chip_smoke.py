@@ -3,7 +3,9 @@ K1b from the repo's source, holds them bit for bit against their plain
 PyTorch versions (at the rendered 8-frame atlas and at edge shapes) and the
 pyramid atlas built on the card against the one built on the CPU, builds
 kernel K2 (the pose Gauss-Newton) and holds it against its plain version
-at the main path's three shapes, then
+at the main path's three shapes, and kernels K3 (a whole local BA call)
+and K4 (a whole two-view triangulation) against their plain versions on a
+window and a keyframe pair of the scan, then
 drives the port's paths over a 240-frame 640x480 synthetic sequence (bench
 input: scene seed 5) and checks their accuracy: the RGB-D offline
 pipeline (and ``match_frames_batched`` over 8 consecutive pairs of its
@@ -87,6 +89,25 @@ def _card() -> str:
 def _require(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def _zero_k34() -> None:
+    """Zeroes the launch counters of K3 (local BA) and K4 (triangulation),
+    where a phase zeroes K1's."""
+    from visionx_slam_torch.models import local_ba
+    from visionx_slam_torch.tracking import stages
+
+    local_ba.lba_launches = 0
+    stages.tri_launches = 0
+
+
+def _k34() -> dict:
+    """K3's and K4's launches since the last ``_zero_k34``."""
+    from visionx_slam_torch.models import local_ba
+    from visionx_slam_torch.tracking import stages
+
+    return {"lba_launches": local_ba.lba_launches,
+            "tri_launches": stages.tri_launches}
 
 
 def _time_ms(fn, reps: int = 20) -> float:
@@ -351,6 +372,198 @@ def check_gn() -> dict:
     return rec
 
 
+# K3 against its plain version on a full window of the hole scan: window
+# poses within LBA_TOL_POSE, landmark positions within LBA_TOL_POS metres
+# (tests/test_torch_lba_kernel.py gives the reasons), iterations and the
+# observation count exactly
+LBA_TOL_POSE = 1e-5
+LBA_TOL_POS = 1e-4
+
+
+def check_lba(grays, depths) -> dict:
+    """K3 against its plain version on the last full window the scan hands
+    to local BA over the first 48 frames with the depth hole (the scan's
+    own options: early exit on): iterations and observations equal, poses
+    and landmark positions within ``LBA_TOL_POSE`` and ``LBA_TOL_POS``,
+    two K3 runs bit for bit; device times of K3 and of the plain version
+    by CUDA events behind a spin kernel, with the copy that restores the
+    window's tables before each call timed alone and taken off, and the
+    pace of back-to-back calls (``host_ms``, the restore included: the
+    plain version launches ~630 operations and reads the device once or
+    twice a call). Returns K3's result record."""
+    import torch
+
+    from visionx_slam_torch.models import local_ba as lba
+    from visionx_slam_torch.tracking import scan_pipeline as sp
+    from visionx_slam_torch.tracking.mapstate import kf_alive
+    from visionx_slam_torch.utils import flops
+    from visionx_slam_torch.utils.config import TrackingOptions
+
+    cam = _camera()
+    t0 = time.perf_counter()
+    lba.build_lba_kernel()
+    build_s = time.perf_counter() - t0
+    g = torch.as_tensor(grays[:48]).cuda()
+    d = torch.as_tensor(depths[:48]).cuda()
+    d[:, :, :HOLE_COLS] = 0.0
+    seen, real = [], sp.local_ba
+
+    def spy(ms, cam_, opts_):
+        seen.append(type(ms)(*(x.clone() for x in ms)))
+        return real(ms, cam_, opts_)
+
+    sp.local_ba = spy
+    try:
+        sp.run_scan_pipeline(cam, g, d, TrackingOptions(), device="cuda")
+    finally:
+        sp.local_ba = real
+    opts = sp.tracking_ba_options(TrackingOptions())
+    src = [m for m in seen if int(kf_alive(m).sum()) >= opts.window_size][-1]
+    ms = type(src)(*(x.clone() for x in src))
+
+    def restore():
+        for name in ("kf_q", "kf_t", "lm_pos"):
+            getattr(ms, name).copy_(getattr(src, name))
+
+    def k3():
+        restore()
+        return lba.local_ba(ms, cam, opts)
+
+    def plain():
+        restore()
+        return lba._local_ba_plain(ms, cam, opts)
+
+    def kept(res):   # the map is restored before the next call
+        m, stats = res
+        return type(m)(*(x.clone() for x in m)), stats
+
+    (a, sa), (b, sb), (p, spl) = kept(k3()), kept(k3()), kept(plain())
+    _require(all(torch.equal(x, y) for x, y in zip(a, b))
+             and torch.equal(sa.final_cost, sb.final_cost),
+             "K3 repeats bit for bit")
+    pose_err = float(torch.maximum((a.kf_q - p.kf_q).abs().max(),
+                                   (a.kf_t - p.kf_t).abs().max()))
+    pos_err = float((a.lm_pos - p.lm_pos).abs().max())
+    iters = (int(sa.iterations), int(spl.iterations))
+    n_obs = (int(sa.total_obs), int(spl.total_obs))
+    _require(iters[0] == iters[1] and n_obs[0] == n_obs[1]
+             and pose_err <= LBA_TOL_POSE and pos_err <= LBA_TOL_POS,
+             f"K3 matches its plain version: iterations {iters}, observations "
+             f"{n_obs}, poses {pose_err}, positions {pos_err}")
+    W, N = opts.window_size, ms.n_features
+    restore_ms = _device_ms(restore)
+    row = {"window": W, "features": N, "iterations": iters[0],
+           "observations": n_obs[0], "max_pose_err": pose_err,
+           "max_pos_err": pos_err, "restore_ms": restore_ms,
+           "ms": _device_ms(k3) - restore_ms,
+           "plain_ms": _device_ms(plain) - restore_ms,
+           "host_ms": _time_ms(k3), "plain_host_ms": _time_ms(plain),
+           "bytes": flops.k3_bytes(ms.kf_capacity, W, N),
+           "ops": flops.k3_ops(W, N, iters[0])}
+    print(f"K3 {json.dumps(row)} ({_card()})", flush=True)
+    rec = _kernel_record("local_ba", "none: the JAX package leaves local BA to XLA",
+                         row["bytes"], row["ops"], max(pose_err, pos_err),
+                         row["ms"], row["plain_ms"], source="local_ba.cu")
+    rec.update(build_s=build_s, window=row)
+    return rec
+
+
+# K4 against its plain version on the richest keyframe pair the hole scan
+# triangulates: links, flags, counts and cursors exactly, new landmarks
+# within TRI_TOL_POS of their distance from the first camera
+# (tests/test_torch_tri_kernel.py gives the reasons)
+TRI_TOL_POS = 1e-4
+
+
+def check_tri(grays, depths) -> dict:
+    """K4 against its plain version on the keyframe pair that makes the most
+    landmarks of those the scan triangulates over the first 48 frames with
+    the depth hole: every table
+    but the positions equal, the new positions within ``TRI_TOL_POS``
+    (relative), two K4 runs bit for bit; device times of K4 and of the plain
+    version by CUDA events behind a spin kernel, the restore of the changed
+    tables before each call timed alone and taken off, and the pace of
+    back-to-back calls. Returns K4's result record."""
+    import torch
+
+    from visionx_slam_torch.tracking import scan_pipeline as sp
+    from visionx_slam_torch.tracking import stages
+    from visionx_slam_torch.utils import flops
+    from visionx_slam_torch.utils.config import TrackingOptions
+
+    cam = _camera()
+    t0 = time.perf_counter()
+    stages.build_tri_kernel()
+    build_s = time.perf_counter() - t0
+    g = torch.as_tensor(grays[:48]).cuda()
+    d = torch.as_tensor(depths[:48]).cuda()
+    d[:, :, :HOLE_COLS] = 0.0
+    seen, real = [], stages.triangulate_pair
+
+    def spy(ms, cam_, a, b, angle, gate, res=None):
+        if res is not None:
+            seen.append((type(ms)(*(x.clone() for x in ms)), a, b, res, angle, gate))
+        return real(ms, cam_, a, b, angle, gate, res=res)
+
+    stages.triangulate_pair = spy
+    try:
+        sp.run_scan_pipeline(cam, g, d, TrackingOptions(), device="cuda")
+    finally:
+        stages.triangulate_pair = real
+    def made(pair) -> int:
+        m, a_, b_, res_, angle_, gate_ = pair
+        out = stages._triangulate_pair_plain(type(m)(*(x.clone() for x in m)),
+                                             cam, a_, b_, angle_, gate_, res_)
+        return int(out.next_lm) - int(m.next_lm)
+
+    src, a, b, res, angle, gate = max(seen, key=made)
+    ms = type(src)(*(x.clone() for x in src))
+    changed = ("kf_feat_lm", "lm_pos", "lm_alive", "lm_obs", "next_lm", "lm_dropped")
+
+    def restore():
+        for name in changed:
+            getattr(ms, name).copy_(getattr(src, name))
+
+    def k4():
+        restore()
+        return stages.triangulate_pair(ms, cam, a, b, angle, gate, res=res)
+
+    def plain():
+        restore()
+        return stages._triangulate_pair_plain(ms, cam, a, b, angle, gate, res)
+
+    def kept(m):
+        return type(m)(*(x.clone() for x in m))
+
+    x, y, p = kept(k4()), kept(k4()), kept(plain())
+    _require(all(torch.equal(u, v) for u, v in zip(x, y)), "K4 repeats bit for bit")
+    same = all(torch.equal(getattr(x, f), getattr(p, f))
+               for f in src._fields if f != "lm_pos")
+    new = p.lm_alive & ~src.lm_alive
+    centre = -stages.quat_rotate(torch.cat([src.kf_q[a, :1], -src.kf_q[a, 1:]]),
+                                 src.kf_t[a])
+    scale = torch.linalg.norm(p.lm_pos[:, new].T - centre, dim=-1).clamp(min=1.0)
+    err = (x.lm_pos[:, new] - p.lm_pos[:, new]).abs().max(0).values / scale
+    pos_err = float(err.max()) if err.numel() else 0.0
+    made = int(p.next_lm) - int(src.next_lm)
+    _require(same and pos_err <= TRI_TOL_POS and made > 0,
+             f"K4 matches its plain version: tables {same}, positions {pos_err}, "
+             f"{made} landmarks")
+    N = ms.n_features
+    restore_ms = _device_ms(restore)
+    row = {"features": N, "created": made, "max_pos_err": pos_err,
+           "restore_ms": restore_ms, "ms": _device_ms(k4) - restore_ms,
+           "plain_ms": _device_ms(plain) - restore_ms,
+           "host_ms": _time_ms(k4), "plain_host_ms": _time_ms(plain),
+           "bytes": flops.k4_bytes(N), "ops": flops.k4_ops(N)}
+    print(f"K4 {json.dumps(row)} ({_card()})", flush=True)
+    rec = _kernel_record("triangulate", "none: the JAX package leaves triangulation to XLA",
+                         row["bytes"], row["ops"], pos_err, row["ms"],
+                         row["plain_ms"], source="triangulate.cu")
+    rec.update(build_s=build_s, pair=row)
+    return rec
+
+
 def run_pipeline(grays, depths, gt_t) -> dict:
     """The port's main path, a warm-up run then a counted, timed run (with
     per-stage times: the stages synchronize at their ends); returns its
@@ -372,13 +585,14 @@ def run_pipeline(grays, depths, gt_t) -> dict:
 
     stage_s: dict = {}
     detect.launches = 0
+    _zero_k34()
     estimation.gn_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ms, out = run_offline_pipeline(cam, g, d, opts, device="cuda", timings=stage_s)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = detect.launches
+    launches, k34 = detect.launches, _k34()
 
     T = len(grays)
     pose = out.pose.cpu().numpy()
@@ -389,7 +603,7 @@ def run_pipeline(grays, depths, gt_t) -> dict:
     return {"frames": T, "seconds": wall, "fps": T / wall, "ate_m": ate,
             "tracked": n_tracked, "keyframes": int(out.n_keyframes),
             "landmarks": int(out.n_landmarks), "k1_launches": launches,
-            "gn_launches": estimation.gn_launches,
+            "gn_launches": estimation.gn_launches, **k34,
             "stage_seconds": stage_s, "batched_matching": check_batched_matching(g),
             "_pose": pose, "_tracked": tracked}
 
@@ -503,6 +717,7 @@ def run_lanes(grays, depths, gt_t) -> dict:
 
     stage_s: dict = {}
     detect.launches = 0
+    _zero_k34()
     estimation.gn_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -510,7 +725,7 @@ def run_lanes(grays, depths, gt_t) -> dict:
                                              timings=stage_s)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = detect.launches
+    launches, k34 = detect.launches, _k34()
     pose, tracked = out.pose.cpu().numpy(), out.tracked.cpu().numpy()
     _require(pose.shape == (LANES_B, Tw, 4, 4) and bool(np.isfinite(pose).all()),
              f"lane poses of shape {pose.shape}, all finite")
@@ -530,7 +745,7 @@ def run_lanes(grays, depths, gt_t) -> dict:
             "lane_tracked": tracked.sum(1).tolist(),
             "keyframes": out.n_keyframes.tolist(),
             "landmarks": out.n_landmarks.tolist(), "k1_launches": launches,
-            "gn_launches": estimation.gn_launches,
+            "gn_launches": estimation.gn_launches, **k34,
             "single_lane0_ate_m": one_ate, "single_lane0_tracked": one_tracked,
             "single_lane0_equal_bit_for_bit": bool(torch.equal(out.pose[0], one.pose)
                                                    and torch.equal(out.tracked[0], one.tracked)),
@@ -564,6 +779,7 @@ def run_mono_offline(grays, gt_t) -> dict:
 
     stage_s: dict = {}
     detect.launches = 0
+    _zero_k34()
     estimation.gn_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -571,7 +787,7 @@ def run_mono_offline(grays, gt_t) -> dict:
                                   timings=stage_s, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = detect.launches
+    launches, k34 = detect.launches, _k34()
     pose, tracked = out.pose.cpu().numpy(), out.tracked.cpu().numpy()
     _require(pose.shape == (T, 4, 4) and bool(np.isfinite(pose).all()),
              f"mono poses of shape {pose.shape}, all finite")
@@ -580,7 +796,7 @@ def run_mono_offline(grays, gt_t) -> dict:
             "ate_m_scale_aligned": ate, "tracked": n_tracked,
             "keyframes": int(out.n_keyframes),
             "landmarks": int(out.n_landmarks), "k1_launches": launches,
-            "gn_launches": estimation.gn_launches,
+            "gn_launches": estimation.gn_launches, **k34,
             "stage_seconds": stage_s, "_pose": out.pose}
 
 
@@ -632,6 +848,7 @@ def run_mono_loop(grays, gt_t, off_pose) -> dict:
         fn()
         stage_s, stats = {}, {}
         detect.launches = 0
+        _zero_k34()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ms, out = fn(timings=stage_s, stats=stats)
@@ -639,7 +856,8 @@ def run_mono_loop(grays, gt_t, off_pose) -> dict:
         wall = time.perf_counter() - t0
         n = T * (2 if name == "folded" else 1)
         r = {"frames": n, "seconds": wall, "fps": n / wall,
-             "k1_launches": detect.launches, "stage_seconds": stage_s, **stats,
+             "k1_launches": detect.launches, **_k34(), "stage_seconds": stage_s,
+             **stats,
              "keyframes": np.asarray(out.n_keyframes.cpu()).tolist(),
              "landmarks": np.asarray(out.n_landmarks.cpu()).tolist()}
         pose = out.pose.cpu().numpy()
@@ -717,12 +935,14 @@ def run_mono_scan(grays, gt_t) -> dict:
     opts = TrackingOptions(link_tracked_landmarks=True, min_init_landmarks=25)
     stats: dict = {}
     detect.launches = 0
+    _zero_k34()
     estimation.gn_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, out = run_scan_pipeline(_camera(), g, z, opts, device="cuda", stats=stats)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    k34 = _k34()
     pose, tracked = out.pose.cpu().numpy(), out.tracked.cpu().numpy()
     _require(pose.shape == (len(gt), 4, 4) and bool(np.isfinite(pose).all()),
              f"mono scan poses of shape {pose.shape}, all finite")
@@ -732,7 +952,7 @@ def run_mono_scan(grays, gt_t) -> dict:
             "first_tracked": int(np.flatnonzero(tracked)[0]) if tracked.any() else None,
             "keyframe_events": int(out.is_keyframe.sum()),
             "landmarks": int(out.n_landmarks[-1]), "k1_launches": detect.launches,
-            "gn_launches": estimation.gn_launches, **stats}
+            "gn_launches": estimation.gn_launches, **k34, **stats}
 
 
 # The JAX package's scan with ``enable_culling=True`` on the 240 frames, on
@@ -836,8 +1056,9 @@ def run_scan(grays, depths, gt_t) -> dict:
     import numpy as np
     import torch
 
-    from visionx_slam_torch.models import estimation
+    from visionx_slam_torch.models import estimation, local_ba
     from visionx_slam_torch.ops import detect
+    from visionx_slam_torch.tracking import stages
 
     cam = _camera()
     g = torch.as_tensor(grays).cuda()
@@ -848,6 +1069,8 @@ def run_scan(grays, depths, gt_t) -> dict:
     stats: dict = {}
     detect.launches = 0
     estimation.gn_launches = 0
+    local_ba.lba_launches = 0
+    stages.tri_launches = 0
     detect.score_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -857,6 +1080,8 @@ def run_scan(grays, depths, gt_t) -> dict:
     res = {"frames": T, "seconds": wall, "fps": T / wall,
            "k1_launches": detect.launches, "k1b_launches": detect.score_launches,
            "gn_launches": estimation.gn_launches,
+           "lba_launches": local_ba.lba_launches,
+           "tri_launches": stages.tri_launches,
            **_scan_metrics(out, gt_t), **stats}
     # kept for the resume phase's comparison; not printed
     res["_positions"] = out.pose[:, :3, 3].cpu().numpy()
@@ -891,9 +1116,10 @@ def run_hole_scan(grays, depths, gt_t) -> dict:
     twice, so local BA has work."""
     import torch
 
-    from visionx_slam_torch.ops import detect
-
+    from visionx_slam_torch.models import local_ba as lba
     from visionx_slam_torch.models.local_ba import BAOptions, local_ba
+    from visionx_slam_torch.ops import detect
+    from visionx_slam_torch.tracking import stages
 
     cam = _camera()
     g = torch.as_tensor(grays).cuda()
@@ -901,13 +1127,17 @@ def run_hole_scan(grays, depths, gt_t) -> dict:
     d[:, :, :HOLE_COLS] = 0.0
     stats: dict = {}
     detect.launches = 0
+    lba.lba_launches = 0
+    stages.tri_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     st, out = _scan(cam, g, d, stats)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     res = {"frames": len(grays), "seconds": wall, "fps": len(grays) / wall,
-           "k1_launches": detect.launches, **_scan_metrics(out, gt_t), **stats}
+           "k1_launches": detect.launches, "lba_launches": lba.lba_launches,
+           "tri_launches": stages.tri_launches,
+           **_scan_metrics(out, gt_t), **stats}
     res["ba_iterations_per_kf_event"] = (stats["ba_iterations"]
                                          / max(stats["kf_events"], 1))
     # the solver sums add in a fixed order: local BA on the final map, and
@@ -1004,10 +1234,12 @@ def run_real_data(root: str) -> dict:
     from visionx_slam_torch.tools import real_data_check
 
     detect.launches = 0
+    _zero_k34()
     t0 = time.perf_counter()
     s = real_data_check.run_real(root, SEQUENCE, os.path.join(root, "out_real"),
                                  "scan", DEGRADE_FRAMES, "cuda")
     return {"seconds": time.perf_counter() - t0, "k1_launches": detect.launches,
+            **_k34(),
             **{k: s.get(k) for k in ("n_frames", "n_tracked", "ate_rmse",
                                      "rpe_trans_rmse", "n_keyframes", "n_landmarks",
                                      "loader", "device", "scan_fps")}}
@@ -1114,6 +1346,7 @@ def run_gba(grays, depths) -> dict:
     fast = lambda x: np.tile(x, (4, 1, 1))[::4].copy()
     res = {"gn_iterations": GBA_ITERS, "cg_iterations": GBA_CG}
     detect.launches = 0
+    _zero_k34()
     for name, g, d in (("bench", grays, depths),
                        ("dropout", fast(grays), fast(depths) * keep)):
         ms, links, _ = run.pre(cam, torch.as_tensor(g).cuda(),
@@ -1151,6 +1384,7 @@ def run_gba(grays, depths) -> dict:
             "global_ba_ms_per_solve": _median_ms(lambda: global_ba(ms, cam, opts)),
         }
     res["k1_launches"] = detect.launches
+    res.update(_k34())
     return res
 
 
@@ -1167,6 +1401,7 @@ def run_archive(grays, depths, gt_t) -> dict:
 
     stats: dict = {}
     detect.launches = 0
+    _zero_k34()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     st, out, archive, gba = run_scan_archived(
@@ -1175,7 +1410,7 @@ def run_archive(grays, depths, gt_t) -> dict:
     wall = time.perf_counter() - t0
     gba = {k: v for k, v in gba.items() if k not in ("keyframe_poses", "keyframe_ids")}
     return {"frames": len(grays), "seconds": wall, "fps": len(grays) / wall,
-            "k1_launches": detect.launches, **_scan_metrics(out, gt_t),
+            "k1_launches": detect.launches, **_k34(), **_scan_metrics(out, gt_t),
             "archived": len(archive), "union_keyframes": int(msl.n_keyframes(st.ms)),
             "union_slots": st.ms.kf_capacity,
             "union_landmarks": int(msl.n_landmarks(st.ms)), "gba": gba, **stats}
@@ -1212,6 +1447,7 @@ def run_resume(grays, depths, gt_t, full_positions, full_tracked) -> dict:
     same = all(torch.equal(a, b) for a, b in zip(ms, st.ms))
     del st
     stats: dict = {}
+    _zero_k34()   # K3 and K4 of the resumed half, which ``stats`` counts
     _, out = _scan(cam, g[cut:], d[cut:], stats, st0=resume_state(ms),
                    frame0=meta["next_frame_id"])
     tracked = out.tracked.cpu().numpy()
@@ -1222,7 +1458,7 @@ def run_resume(grays, depths, gt_t, full_positions, full_tracked) -> dict:
             "snapshot_round_trip_equal": same, "tracked": int(tracked.sum()),
             "first_tracked": bool(tracked[0]),
             "max_position_gap_m": float(gap.max()) if gap.size else None,
-            "k1_launches": detect.launches,
+            "k1_launches": detect.launches, **_k34(),
             **_scan_metrics(out, gt_t[cut:]), **stats}
 
 
@@ -1240,17 +1476,18 @@ def run_culling(grays, depths, gt_t, **cull_opts) -> dict:
     g = torch.as_tensor(grays).cuda()
     d = torch.as_tensor(depths).cuda()
     detect.launches = 0
+    _zero_k34()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     st, out = _scan(cam, g, d, stats, opts=opts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = detect.launches
+    launches, k34 = detect.launches, _k34()
     T = len(grays)
     n_syncs = len(_cuda_syncs(lambda: _scan(cam, g, d, opts=opts)))
     return {"frames": T, "seconds": wall, "fps": T / wall,
             "cuda_syncs_per_frame": n_syncs / T,
-            "k1_launches": launches, **_scan_metrics(out, gt_t),
+            "k1_launches": launches, **k34, **_scan_metrics(out, gt_t),
             "final_keyframes": int(msl.n_keyframes(st.ms)),
             "host_syncs_per_frame": stats["host_syncs"] / T, **stats}
 
@@ -1278,12 +1515,13 @@ def run_batched_scan(grays, depths, gt_t) -> dict:
 
     stats: dict = {}
     detect.launches = 0
+    _zero_k34()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, out = run_scan_pipeline_batched(cam, g, d, opts, device="cuda", stats=stats)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = detect.launches
+    launches, k34 = detect.launches, _k34()
     pose, tracked = out.pose.cpu().numpy(), out.tracked.cpu().numpy()
     _require(pose.shape == (Tw, LANES_B, 4, 4) and bool(np.isfinite(pose).all()),
              f"batched scan poses of shape {pose.shape}, all finite")
@@ -1309,7 +1547,7 @@ def run_batched_scan(grays, depths, gt_t) -> dict:
             "tracked_frac": float(tracked.mean()), "lane_ate_m": ates,
             "lane_tracked": tracked.sum(0).tolist(),
             "keyframe_events": out.is_keyframe.sum(0).tolist(),
-            "k1_launches": launches, "single_lane0_ate_m": one_ate,
+            "k1_launches": launches, **k34, "single_lane0_ate_m": one_ate,
             "single_lane0_tracked": one_tracked,
             "lanes_equal_single_runs_bit_for_bit": lanes_equal,
             "host_syncs_per_frame": stats["host_syncs"] / (LANES_B * Tw)}
@@ -1361,6 +1599,7 @@ def _cli(dataset_dir: str, out: str, *flags: str, keep_poses: bool = False) -> d
     argv = ["--dataset_dir", dataset_dir, "--sequence", SEQUENCE,
             "--output_dir", out, *flags]
     detect.launches = 0
+    _zero_k34()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if keep_poses:
@@ -1385,6 +1624,7 @@ def _cli(dataset_dir: str, out: str, *flags: str, keep_poses: bool = False) -> d
                  "frames.jsonl has one record per frame")
         metrics["keyframe_flags"] = sum(r["is_keyframe"] for r in recs)
     metrics["k1_launches"] = detect.launches
+    metrics.update(_k34())
     metrics["cli_seconds"] = wall
     if keep_poses:
         metrics["_tracked"] = np.array([r.pose_T_cw is not None for r in system.results])
@@ -1397,8 +1637,8 @@ def _brief(m: dict) -> dict:
     keep = ("_pose", "_tracked", "n_frames", "n_tracked", "n_keyframes",
             "n_landmarks", "ate_rmse", "rpe_trans_rmse", "rpe_rot_rmse", "fps",
             "scan_fps", "scan_time_s", "decode_time_s", "wall_time_s",
-            "cli_seconds", "loader", "device", "k1_launches",
-            "host_reads_per_frame", "global_ba", "scan_stats", "keyframe_flags")
+            "cli_seconds", "loader", "device", "k1_launches", "lba_launches",
+            "tri_launches", "host_reads_per_frame", "global_ba", "scan_stats", "keyframe_flags")
     out = {k: m[k] for k in keep if k in m}
     out["stage_seconds"] = {k: v["total_s"] for k, v in m["stage_timings"].items()}
     return out
@@ -1567,9 +1807,10 @@ def run_multi_device(seq_root: str, lanes: dict) -> dict:
     # (a) entry's forward: K1 once, at B=1
     fn, example = ent.entry("cuda")
     detect.launches = 0
+    _zero_k34()
     pose, n_inl, n_valid = fn(*example)
     torch.cuda.synchronize()
-    res["entry"] = {"k1_launches": detect.launches, "n_valid": int(n_valid),
+    res["entry"] = {"k1_launches": detect.launches, **_k34(), "n_valid": int(n_valid),
                     "inliers": int(n_inl[0]),
                     "finite": bool(torch.isfinite(pose.q).all()
                                    and torch.isfinite(pose.t).all())}
@@ -1591,17 +1832,19 @@ def run_multi_device(seq_root: str, lanes: dict) -> dict:
             launches = detect.launches
             ref_mss = _clone(mss)
             torch.cuda.synchronize()
+            _zero_k34()
             t0 = time.perf_counter()
             mss2, poses, fleet = pb.batched_slam_step(mesh, cam, **kw)(
                 mss, obss, fids, gens)
             torch.cuda.synchronize()
             step_s = time.perf_counter() - t0
+            k34 = _k34()
             ref = [pb.slam_step(ms, obs, fids[b], cam, g, **kw) for b, (ms, obs, g)
                    in enumerate(zip(pb.unstack_states(ref_mss), pb.unstack_obs(obss),
                                     pb.lane_generators(7, range(FLEET_D), mesh.device)))]
             poses_np = poses.cpu().numpy()
             res["fleet"] = {
-                "k1_launches": launches, "step_seconds": step_s,
+                "k1_launches": launches, **k34, "step_seconds": step_s,
                 "total_matches": int(fleet["total_matches"]),
                 "total_inliers": int(fleet["total_inliers"]),
                 "lane_matches": [int(r[2]["matches"]) for r in ref],
@@ -1620,12 +1863,13 @@ def run_multi_device(seq_root: str, lanes: dict) -> dict:
             ms_l, out_l = lanes["_result"]
             f = pb.sharded_offline_pipeline(mesh, cam, TrackingOptions())
             detect.launches = 0
+            _zero_k34()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             ms_s, out_s, fleet_o = f(g, d)
             torch.cuda.synchronize()
             res["offline"] = {
-                "k1_launches": detect.launches,
+                "k1_launches": detect.launches, **_k34(),
                 "seconds": time.perf_counter() - t0,
                 "lane_offset": fleet_o["lane_offset"],
                 "total_tracked": int(fleet_o["total_tracked"]),
@@ -1640,8 +1884,10 @@ def run_multi_device(seq_root: str, lanes: dict) -> dict:
 
             # (e) the dry run
             detect.launches = 0
+            _zero_k34()
             res["dryrun"] = ent.dryrun_multichip(1)
             res["dryrun"]["k1_launches"] = detect.launches
+            res["dryrun"].update(_k34())
         finally:
             dist.destroy_process_group()
     res["seconds"] = time.perf_counter() - t_phase
@@ -1695,12 +1941,16 @@ def check_multi_device(md: dict, lanes: dict) -> None:
 # does, in a process of its own, reporting K1's launches of the whole run
 _BENCH_RUN = """
 import runpy, sys
+from visionx_slam_torch.models import local_ba
 from visionx_slam_torch.ops import detect
+from visionx_slam_torch.tracking import stages
 sys.argv[0] = "visionx_slam_torch.bench"
 try:
     runpy.run_module("visionx_slam_torch.bench", run_name="__main__")
 finally:
     print(f"K1_LAUNCHES {detect.launches}", file=sys.stderr)
+    print(f"K34_LAUNCHES {local_ba.lba_launches} {stages.tri_launches}",
+          file=sys.stderr)
 """
 BENCH_CONFIGS = ("1_online_scan", "2_monocular", "2b_monocular_offline",
                  "3_long_sequence", "4_fullmap_gba", "5_batched_offline")
@@ -1734,8 +1984,12 @@ def run_bench(runs: int = 2) -> dict:
     lines = res.stdout.strip().splitlines()
     launches = [int(x.split()[1]) for x in res.stderr.splitlines()
                 if x.startswith("K1_LAUNCHES")]
+    k34 = [x.split()[1:] for x in res.stderr.splitlines()
+           if x.startswith("K34_LAUNCHES")][-1]
     return {"last_line": lines[-1], "result": json.loads(lines[-2]),
-            "saved": saved, "k1_launches": launches[-1], "seconds": wall}
+            "saved": saved, "k1_launches": launches[-1],
+            "lba_launches": int(k34[0]), "tri_launches": int(k34[1]),
+            "seconds": wall}
 
 
 def check_bench(b: dict) -> None:
@@ -1824,6 +2078,8 @@ def main() -> int:
     k1["one_frame"] = time_k1_one_frame(grays[0])
     k1b = check_k1b(grays[:8])
     gn = check_gn()
+    lba_rec = check_lba(grays, depths)
+    tri_rec = check_tri(grays, depths)
 
     # ---- 4. the offline pipeline ----
     res = run_pipeline(grays, depths, gt_t)
@@ -1881,14 +2137,18 @@ def main() -> int:
 
     # ---- 7. the long-stress tool: 2160 frames, ring wrap, compaction,
     # no landmark dropped, split at 1200 ----
+    _zero_k34()
     stress = run_stress(grays, depths, gt_t)
+    stress.update(_k34())   # both of the tool's runs
     print("stress " + json.dumps(stress) + f" ({card})", flush=True)
     check_stress(stress, T)
     from visionx_slam_torch.tools import long_stress
     print(long_stress.summary(stress) + f" ({card})", flush=True)
 
     # ---- 7b. the sensor-degradation matrix (the real-data tool) ----
+    _zero_k34()
     degr = run_degradation(grays, depths, gt_t)
+    degr_k34 = _k34()   # every row
     band = check_degradation(degr)
     from visionx_slam_torch.tools import real_data_check
     print(real_data_check.table(degr, band), flush=True)
@@ -2280,6 +2540,34 @@ def main() -> int:
         "entry": md["entry"]["k1_launches"],
         "bench": bench["k1_launches"]}
     k1b["launches_by_path"] = {"scan": scan["k1b_launches"]}
+    # K3 and K4 on every path that K1 runs on (stress: both of its runs;
+    # degradation: every row; bench: its process, warm-ups included)
+    k34_paths = {
+        "offline": res, "scan": scan, "hole_scan": hole, "stress": stress,
+        "degradation": degr_k34, "real_data": real, "lanes": lanes,
+        "mono_offline": mono, "mono_scan": mscan, "mono_loop_scale": ls,
+        "mono_loop_merge": lm, "mono_loop_folded": lf, "gba": gba,
+        "archive": arch, "resume": resume, "culling": cull,
+        "culling_keep": keep, "batched_scan": bscan, "system_scan": s_scan,
+        "system_offline": s_off, "system_host": s_host,
+        "multi_device_fleet": fl, "multi_device_offline": off,
+        "multi_device_dryrun": md["dryrun"], "entry": md["entry"],
+        "bench": bench}
+    lba_rec["launches"] = scan["lba_launches"]
+    lba_rec["launches_by_path"] = {k: r["lba_launches"] for k, r in k34_paths.items()}
+    tri_rec["launches"] = scan["tri_launches"]
+    tri_rec["launches_by_path"] = {k: r["tri_launches"] for k, r in k34_paths.items()}
+    # where a path reports the scan's counters, every local BA it made was
+    # one K3 launch
+    for name, r in k34_paths.items():
+        c = r.get("scan_stats", r)
+        if "lba_kernel" in c:
+            _require(r["lba_launches"] == c["lba_kernel"] == c["kf_events"],
+                     f"{name}: every local BA of the scan is one K3 launch: "
+                     f"{r['lba_launches']} launches, lba_kernel {c['lba_kernel']}, "
+                     f"{c['kf_events']} keyframe events")
+    print("K3 launches by path " + json.dumps(lba_rec["launches_by_path"])
+          + f"; K4 {json.dumps(tri_rec['launches_by_path'])} ({card})", flush=True)
     gn["launches"] = scan["gn_launches"]
     gn["launches_by_path"] = {
         "offline": res["gn_launches"], "scan": scan["gn_launches"],
@@ -2289,7 +2577,7 @@ def main() -> int:
     # ---- 19. result ----
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s "
           f"({card})", flush=True)
-    print(json.dumps({"kernels": [k1, k1b, gn]}))
+    print(json.dumps({"kernels": [k1, k1b, gn, lba_rec, tri_rec]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

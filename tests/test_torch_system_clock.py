@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import torch_parity  # noqa: F401  (one torch thread per test process)
+from slambench import run
 from slambench.data import scene
 from slambench.reference import files
 from visionx_slam_torch.data import tum
@@ -89,12 +90,35 @@ def test_timings_hold_the_stage_clock_and_tile_the_run(runs):
 
 def test_the_scan_spans_tile_the_scan_lap(runs):
     """The scan's spans split its lap: the upload, a chunk's ORB, and a
-    frame's matching, RANSAC, Gauss-Newton and the rest of its step."""
+    frame's matching, RANSAC, Gauss-Newton, a keyframe event up to local BA,
+    local BA, and the rest of its step."""
     _, _, timings = runs
-    keys = [f"scan/{k}" for k in ("upload", "orb", "match", "ransac", "gn", "step")]
+    keys = [f"scan/{k}" for k in ("upload", "orb", "match", "ransac", "gn",
+                                  "kf", "lba", "step")]
     for k in keys:
         assert k in timings and timings[k] >= 0, k
     assert sum(timings[k] for k in keys) <= timings["scan"]
+
+
+def test_on_the_cpu_no_local_ba_runs_on_k3(runs):
+    """The scan counts its local BA calls that ran on kernel K3: none on
+    the CPU, where every keyframe event runs the plain version."""
+    (_, summary, _), (_, plain, _), _ = runs
+    for s in (summary, plain):
+        assert s["scan_stats"]["kf_events"] > 0
+        assert s["scan_stats"]["lba_kernel"] == 0
+
+
+def test_lba_ms_reads_the_lba_spans(runs):
+    """``lba_ms.disk`` reads the ``scan/lba`` spans a frame, and nothing
+    where the program has no such span (the parent of kernel K3)."""
+    (_, summary, _), _, timings = runs
+    read = run.reader("lba_ms.disk")
+    n = summary["n_frames"]
+    assert read({"timings": timings, "frames": n}) == 1e3 * timings["scan/lba"] / n
+    without = {k: v for k, v in timings.items() if k != "scan/lba"}
+    assert read({"timings": without, "frames": n}) is None
+    assert read({"timings": timings, "frames": 0}) is None
 
 
 def test_without_timings_nothing_is_kept_and_the_run_is_the_same(runs):

@@ -10,26 +10,47 @@ sorted by landmark once, per-iteration segment sums of 3x3 / 3x1 blocks
 (``ops.index.segment_sum``: a fixed order, so the same bits in every run on
 CUDA too), closed-form 3x3 solves.
 
-The iteration loop: with ``early_exit`` the host reads the ``done`` flag
-after every iteration and stops at convergence (one device read per
-iteration; the JAX package's ``while_loop``); without it the loop runs
-``max_iterations`` masked iterations and reads nothing (its ``scan``). Both
-give the same map, iterations, cost and observation count as the JAX
-variant of the same name; ``BAStats.host_reads`` counts the reads.
+On CUDA tensors the whole call is one launch of kernel K3
+(``csrc/local_ba.cu``): the window, the buckets, every iteration and the
+convergence test run on the card, and the host reads nothing. On CPU
+tensors the plain version (``_local_ba_plain``) runs; there is no fallback
+between the two.
+
+The plain version's iteration loop: with ``early_exit`` the host reads the
+``done`` flag after every iteration and stops at convergence (one device
+read per iteration; the JAX package's ``while_loop``); without it the loop
+runs ``max_iterations`` masked iterations and reads nothing (its ``scan``).
+Both give the same map, iterations, cost and observation count as the JAX
+variant of the same name; ``BAStats.host_reads`` counts the reads. K3 runs
+either variant on the card (it stops when ``done`` is set, or runs the
+masked iterations) with no read.
 """
 
 from __future__ import annotations
 
+import ctypes
+from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
+from ..ops import cuda_build
 from ..ops.camera import CameraParams
 from ..ops.index import segment_sum, segments, stable_argsort
 from ..ops.linalg import chol_solve6x6, solve3x3
 from ..ops.se3 import Pose, quat_to_matrix, se3_compose, se3_exp
 from ..tracking import mapstate as msl
 from ..tracking.mapstate import MapState
+from ..utils import flops
+
+# kernel K3, a whole ``local_ba`` call on the card
+_K3_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "local_ba.cu"
+# kf_q, kf_t, kf_id, kf_px, kf_fvalid, kf_feat_lm, lm_pos, lm_alive, lm_obs,
+# stats, workspace, layout, params, stream (see the .cu file's foot)
+_K3_ARGTYPES = (ctypes.c_void_p,) * 14
+_K3_MAX_WINDOW = 1024     # window slots: their state in shared memory
+_K3_MAX_ROWS = 1 << 28    # window x features: int indices of the workspace
+lba_launches = 0          # K3 launches since import (or the last reset by a caller)
 
 
 class BAOptions(NamedTuple):
@@ -73,7 +94,97 @@ def _huber_w(err_norm: torch.Tensor, delta: float) -> torch.Tensor:
 def local_ba(ms: MapState, cam: CameraParams,
              opts: BAOptions = BAOptions()) -> tuple[MapState, BAStats]:
     """Windowed alternating GN on the map; updates the window's keyframe
-    poses and landmark positions in place and returns (state, stats)."""
+    poses and landmark positions in place and returns (state, stats). For
+    CUDA tensors the whole call is one launch of kernel K3, for CPU tensors
+    the plain version runs (module docstring). Either way it records K3's
+    analytic work with ``utils.flops``."""
+    dev = ms.kf_q.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    W = min(max(1, opts.window_size), ms.kf_capacity)
+    with flops.unit("local_ba",
+                    flops.k3_ops(W, ms.n_features, opts.max_iterations),
+                    flops.k3_bytes(ms.kf_capacity, W, ms.n_features)):
+        if dev.type == "cpu":
+            return _local_ba_plain(ms, cam, opts)
+        return _launch_k3(ms, cam, opts, W)
+
+
+def _k3_layout(ms: MapState, opts: BAOptions, W: int) -> list:
+    """K3's int64 layout for a window of ``W`` slots: [K, N, Lp, W,
+    iterations, min_pose_observations, min_point_observations,
+    early_exit]. Raises on what K3 does not take: a field of another dtype
+    or shape than ``empty_map`` makes, one not contiguous (K3 writes the
+    tables in place), more than ``_K3_MAX_WINDOW`` window slots or
+    ``_K3_MAX_ROWS`` window features."""
+    K, N, Lp = ms.kf_capacity, ms.kf_px.shape[-1], ms.lm_pos.shape[-1]
+    want = {"kf_q": ((K, 4), torch.float32), "kf_t": ((K, 3), torch.float32),
+            "kf_id": ((K,), torch.int32), "kf_px": ((K, 2, N), torch.float32),
+            "kf_fvalid": ((K, N), torch.bool),
+            "kf_feat_lm": ((K, N), torch.int32),
+            "lm_pos": ((3, Lp), torch.float32), "lm_alive": ((Lp,), torch.bool),
+            "lm_obs": ((Lp,), torch.int32)}
+    for name, (shape, dtype) in want.items():
+        x = getattr(ms, name)
+        if tuple(x.shape) != shape or x.dtype != dtype:
+            raise ValueError(f"K3 takes {name} {shape} {dtype}; got "
+                             f"{tuple(x.shape)} {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"K3 takes contiguous tables; {name} is not")
+    if not 1 <= W <= min(K, _K3_MAX_WINDOW):
+        raise ValueError(f"K3 takes 1 to {_K3_MAX_WINDOW} window slots of at "
+                         f"most K={K}; got {W}")
+    if N < 1 or W * N > _K3_MAX_ROWS:
+        raise ValueError(f"K3 takes at most {_K3_MAX_ROWS} window features; "
+                         f"got {W} x {N}")
+    if not 1 <= Lp < 2 ** 31 - 1:
+        raise ValueError(f"K3 takes 1 to 2**31 - 2 landmark rows; got {Lp}")
+    return [K, N, Lp, W, max(opts.max_iterations, 0),
+            opts.min_pose_observations, opts.min_point_observations,
+            int(opts.early_exit)]
+
+
+def _launch_k3(ms: MapState, cam: CameraParams, opts: BAOptions,
+               W: int) -> tuple[MapState, BAStats]:
+    """One launch of K3 on the current stream (no host read)."""
+    global lba_launches
+    layout = _k3_layout(ms, opts, W)
+    dev = ms.kf_q.device
+    if any(x.device != dev for x in ms):
+        raise ValueError("K3 takes a map on one device")
+    stats = torch.empty(3, dtype=torch.int32, device=dev)
+    S = W * ms.n_features
+    # the buckets' heads, positions and flags (6 S), the sort keys' room
+    # where they do not fit in shared memory (2 P, P the power of two >= S)
+    P = 1 << (S - 1).bit_length()
+    work = torch.empty(6 * S + 2 * P, dtype=torch.int32, device=dev)
+    params = (ctypes.c_float * 7)(cam.fx, cam.fy, cam.cx, cam.cy,
+                                  opts.huber_delta, opts.max_reproj_error,
+                                  opts.rel_tol)
+    k3 = cuda_build.entry(_K3_SOURCE, "vxs_local_ba", _K3_ARGTYPES)
+    tables = (ms.kf_q, ms.kf_t, ms.kf_id, ms.kf_px, ms.kf_fvalid,
+              ms.kf_feat_lm, ms.lm_pos, ms.lm_alive, ms.lm_obs, stats, work)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = k3(*(x.data_ptr() for x in tables),
+                 (ctypes.c_longlong * 8)(*layout), params, stream)
+    if err != 0:
+        raise RuntimeError(f"K3 launch failed with CUDA error {err}")
+    lba_launches += 1
+    return ms, BAStats(iterations=stats[0],
+                       final_cost=stats[1:2].view(torch.float32)[0],
+                       total_obs=stats[2])
+
+
+def build_lba_kernel() -> None:
+    """Compile and load K3 now (otherwise at the first launch)."""
+    cuda_build.entry(_K3_SOURCE, "vxs_local_ba", _K3_ARGTYPES)
+
+
+def _local_ba_plain(ms: MapState, cam: CameraParams,
+                    opts: BAOptions = BAOptions()) -> tuple[MapState, BAStats]:
+    """The plain version of kernel K3: ``local_ba`` runs it for CPU
+    tensors."""
     W = max(1, opts.window_size)
     slots, wvalid = msl.window_slots(ms, W)
     W = slots.shape[0]

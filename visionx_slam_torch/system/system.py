@@ -323,8 +323,9 @@ class System:
     file); ``#host_syncs``; and, with the Python loader, ``#decode_ahead``
     (the frames its workers had decoded when asked for). The stage keys
     tile the run. Spans that the scan's own functions end land there too: ``scan/orb`` (a chunk's ORB),
-    then a frame's ``scan/match``, ``scan/ransac``, ``scan/gn`` and
-    ``scan/step`` (the rest of its step). The offline pipeline laps ``decode`` and
+    then a frame's ``scan/match``, ``scan/ransac``, ``scan/gn``, on a
+    keyframe event ``scan/kf`` (the event up to local BA) and ``scan/lba``
+    (local BA), and ``scan/step`` (the rest of its step). The offline pipeline laps ``decode`` and
     ``offline_pipeline``, the host path ``decode``, ``extract`` and
     ``track`` a frame."""
 

@@ -34,6 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..models import local_ba as lba
 from ..models import matching
 from ..models.estimation import (
     essential_ransac,
@@ -114,13 +115,15 @@ class ScanCounters:
     """What a run did that the outputs do not show: device-to-host reads
     made by the step's decisions (local BA's convergence reads and the
     keyframe culling's included), landmark compactions, keyframe events,
-    the keyframes culling removed, and the local BA iterations and culled
-    landmarks (device scalars, read once)."""
+    the local BA calls that ran as one launch of kernel K3 (every one on
+    the card, none on the CPU), the keyframes culling removed, and the
+    local BA iterations and culled landmarks (device scalars, read once)."""
 
     def __init__(self, device=None):
         self.host_syncs = 0
         self.compactions = 0
         self.kf_events = 0
+        self.lba_kernel = 0
         self.kf_culled = 0
         self.ba_iterations = torch.zeros((), dtype=torch.int64, device=device)
         self.lm_culled = torch.zeros((), dtype=torch.int64, device=device)
@@ -485,7 +488,11 @@ def build_scan_step(
             ctr.kf_culled += removed >= 0
             ctr.lm_culled += n_culled + n_culled2
         if opts.enable_local_ba:
+            span("kf")
+            launches = lba.lba_launches
             ms, ba = local_ba(ms, cam, ba_opts)
+            span("lba")
+            ctr.lba_kernel += lba.lba_launches - launches
             ctr.ba_iterations += ba.iterations
             ctr.host_syncs += ba.host_reads
         return st._replace(
@@ -632,9 +639,11 @@ def extract_sequence(images_u8: torch.Tensor, depths_m: torch.Tensor,
 def _scan_frames(step, st: ScanState, frame0: int, obs: FrameObs, bits, pop,
                  mean: list, std: list):
     """The serial loop over pre-extracted frames: (final state, records).
-    Each frame ends the stage clock's ``step`` span: what its step ran after
-    its last ``match``, ``ransac`` or ``gn`` span (the keyframe decision and
-    event, local BA, the record)."""
+    A keyframe event ends the stage clock's ``kf`` span (the event up to
+    local BA: the keyframe, its landmarks, culling) and ``lba`` (local BA);
+    each frame ends ``step``: what its step ran after its last ``match``,
+    ``ransac``, ``gn`` or ``lba`` span (the record, and on a frame without
+    an event the keyframe decision)."""
     recs = []
     for i in range(len(mean)):
         st, rec = step(st, (frame0 + i, _frame_obs(obs, i), bits[i], pop[i],
@@ -668,7 +677,7 @@ def _frame_out(recs: list, dev) -> FrameOut:
 def _counter_stats(ctr: ScanCounters, frames: int) -> dict:
     return dict(frames=frames, host_syncs=ctr.host_syncs,
                 compactions=ctr.compactions, kf_events=ctr.kf_events,
-                kf_culled=ctr.kf_culled,
+                lba_kernel=ctr.lba_kernel, kf_culled=ctr.kf_culled,
                 ba_iterations=int(ctr.ba_iterations),
                 lm_culled=int(ctr.lm_culled))
 
@@ -783,6 +792,7 @@ def run_scan_pipeline_batched(
         stats.update(
             lanes=list(lane_stats), frames=B * T, extract_seconds=extract_s,
             **{k: sum(s[k] for s in lane_stats)
-               for k in ("host_syncs", "compactions", "kf_events", "kf_culled",
+               for k in ("host_syncs", "compactions", "kf_events",
+                         "lba_kernel", "kf_culled",
                          "ba_iterations", "lm_culled")})
     return _stack(list(sts)), out

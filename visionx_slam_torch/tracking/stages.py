@@ -6,7 +6,9 @@ place (see ``mapstate``)."""
 
 from __future__ import annotations
 
+import ctypes
 import math
+from pathlib import Path
 from typing import NamedTuple
 
 import torch
@@ -14,14 +16,25 @@ import torch
 from ..models import matching
 from ..models.estimation import projection_matrix, triangulate_dlt
 from ..models.matching import MatchResult
+from ..ops import cuda_build
 from ..ops.camera import CameraParams, backproject, project_pinhole
 from ..ops.index import segment_sum, segments
 from ..ops.se3 import Pose, identity_pose, quat_rotate, se3_apply, se3_inverse
+from ..utils import flops
 from . import mapstate as msl
 from .mapstate import MapState
 
 MIN_DEPTH = 0.1
 MAX_DEPTH = 10.0
+
+# kernel K4, a whole ``triangulate_pair`` call on the card
+_K4_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "triangulate.cu"
+# kf_q, kf_t, kf_px, kf_feat_lm, lm_pos, lm_alive, lm_obs, next_lm,
+# lm_dropped, idx, dist, valid, workspace, layout, params, stream (the .cu
+# file's foot)
+_K4_ARGTYPES = (ctypes.c_void_p,) * 16
+_K4_MAX_FEATURES = 1 << 28   # a keyframe's features: int indices of the workspace
+tri_launches = 0          # K4 launches since import (or the last reset by a caller)
 
 
 class FrameObs(NamedTuple):
@@ -145,12 +158,95 @@ def triangulate_pair(ms: MapState, cam: CameraParams, slot_a: int, slot_b: int,
     gated by ray angle and two-sided reprojection error, create landmarks
     (observed twice) linked from both keyframes. One query per train
     feature wins: the lowest distance, then the lowest query row. ``res``:
-    the knn2 ratio match of the two slots, when the caller has it."""
-    px_a, px_b = ms.kf_px[slot_a].T, ms.kf_px[slot_b].T
+    the knn2 ratio match of the two slots, when the caller has it. For CUDA
+    tensors everything after the match is one launch of kernel K4
+    (``csrc/triangulate.cu``), for CPU tensors the plain version runs; there
+    is no fallback between the two. Either way it records K4's analytic
+    work with ``utils.flops``."""
+    dev = ms.kf_q.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
     if res is None:
         res = matching.knn2_ratio_match(
             ms.kf_desc[slot_a], ms.kf_fvalid[slot_a],
             ms.kf_desc[slot_b], ms.kf_fvalid[slot_b])
+    N = ms.n_features
+    with flops.unit("triangulate_pair", flops.k4_ops(N), flops.k4_bytes(N)):
+        if dev.type == "cpu":
+            return _triangulate_pair_plain(ms, cam, slot_a, slot_b,
+                                           min_angle_deg, max_reproj, res)
+        return _launch_k4(ms, cam, slot_a, slot_b, min_angle_deg, max_reproj,
+                          res)
+
+
+def _k4_layout(ms: MapState, slot_a: int, slot_b: int, res: MatchResult) -> list:
+    """K4's int64 layout: [N, Lp, L, slot a, slot b]. Raises on what K4 does
+    not take: a table of another dtype or shape than ``empty_map`` makes,
+    one not contiguous (K4 writes the tables in place), a match of another
+    shape, slots out of the ring, more than ``_K4_MAX_FEATURES`` features."""
+    K, N, Lp = ms.kf_capacity, ms.kf_px.shape[-1], ms.lm_pos.shape[-1]
+    want = {"kf_q": ((K, 4), torch.float32), "kf_t": ((K, 3), torch.float32),
+            "kf_px": ((K, 2, N), torch.float32),
+            "kf_feat_lm": ((K, N), torch.int32),
+            "lm_pos": ((3, Lp), torch.float32), "lm_alive": ((Lp,), torch.bool),
+            "lm_obs": ((Lp,), torch.int32), "next_lm": ((), torch.int32),
+            "lm_dropped": ((), torch.int32)}
+    for name, (shape, dtype) in want.items():
+        x = getattr(ms, name)
+        if tuple(x.shape) != shape or x.dtype != dtype:
+            raise ValueError(f"K4 takes {name} {shape} {dtype}; got "
+                             f"{tuple(x.shape)} {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"K4 takes contiguous tables; {name} is not")
+    if any(tuple(x.shape) != (N,) for x in res):
+        raise ValueError(f"K4 takes a match of {N} queries")
+    if not (0 <= slot_a < K and 0 <= slot_b < K):
+        raise ValueError(f"K4 takes slots of the ring; got {slot_a}, {slot_b}")
+    if not 1 <= N <= _K4_MAX_FEATURES or not N <= Lp < 2 ** 31 - 1:
+        raise ValueError(f"K4 takes 1 to {_K4_MAX_FEATURES} features and "
+                         f"fewer than 2**31 - 1 landmark rows; got {N}, {Lp}")
+    return [N, Lp, Lp - N, slot_a, slot_b]
+
+
+def _launch_k4(ms: MapState, cam: CameraParams, slot_a: int, slot_b: int,
+               min_angle_deg: float, max_reproj: float,
+               res: MatchResult) -> MapState:
+    """One launch of K4 on the current stream (no host read)."""
+    global tri_launches
+    layout = _k4_layout(ms, slot_a, slot_b, res)
+    dev = ms.kf_q.device
+    match = (res.idx.long().contiguous(), res.dist.float().contiguous(),
+             res.valid.contiguous())
+    if any(x.device != dev for x in (*ms, *match)):
+        raise ValueError("K4 takes a map and a match on one device")
+    params = (ctypes.c_float * 6)(cam.fx, cam.fy, cam.cx, cam.cy,
+                                  math.radians(min_angle_deg), max_reproj)
+    k4 = cuda_build.entry(_K4_SOURCE, "vxs_triangulate", _K4_ARGTYPES)
+    # six words a feature, where shared memory has no room for them
+    work = torch.empty(6 * ms.n_features, dtype=torch.int32, device=dev)
+    tables = (ms.kf_q, ms.kf_t, ms.kf_px, ms.kf_feat_lm, ms.lm_pos,
+              ms.lm_alive, ms.lm_obs, ms.next_lm, ms.lm_dropped, *match, work)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = k4(*(x.data_ptr() for x in tables),
+                 (ctypes.c_longlong * 5)(*layout), params, stream)
+    if err != 0:
+        raise RuntimeError(f"K4 launch failed with CUDA error {err}")
+    tri_launches += 1
+    return ms
+
+
+def build_tri_kernel() -> None:
+    """Compile and load K4 now (otherwise at the first launch)."""
+    cuda_build.entry(_K4_SOURCE, "vxs_triangulate", _K4_ARGTYPES)
+
+
+def _triangulate_pair_plain(ms: MapState, cam: CameraParams, slot_a: int,
+                            slot_b: int, min_angle_deg: float,
+                            max_reproj: float, res: MatchResult) -> MapState:
+    """The plain version of kernel K4: ``triangulate_pair`` runs it for CPU
+    tensors."""
+    px_a, px_b = ms.kf_px[slot_a].T, ms.kf_px[slot_b].T
     N = ms.n_features
     dev = px_a.device
     idx = res.idx.long()

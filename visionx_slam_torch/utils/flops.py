@@ -116,6 +116,57 @@ def k2_ops(n_problems: int, n_points: int, iters: int, robust: bool) -> int:
     return max(iters, 0) * n_problems * (n_points * per_point + K2_SOLVE_OPS)
 
 
+# arithmetic of kernel K3 (a local BA call), per window feature and
+# iteration: the pose pass (the rotation and translation 18, projection,
+# residual and weight 15, the Jacobian's two rows 20, the weighted rows and
+# the 27 sums, cost and count 127) and the point pass (the same view 33, the
+# Jacobian times R 38, the 3x3 and 3x1 blocks 72); per window keyframe and
+# iteration the 6x6 Cholesky solve, se3_exp and the composition, about 400;
+# per landmark and iteration the adjugate 3x3 solve, about 50. The sort that
+# builds the buckets is integer work and is not counted.
+K3_POSE_OPS_PER_ROW = 18 + 15 + 20 + 127
+K3_POINT_OPS_PER_ROW = 33 + 38 + 72
+K3_SOLVE6_OPS = 400
+K3_SOLVE3_OPS = 50
+
+
+def k3_bytes(n_slots: int, window: int, n_features: int) -> int:
+    """Least traffic of K3, with every window feature's landmark counted as
+    its own (at most ``window`` x ``n_features`` landmarks): the slots' ids;
+    each feature's link, validity and pixels (13 B); each window pose read
+    and written (56 B); each landmark's position, flag and count read and
+    its position written (29 B); the three stats."""
+    rows = window * n_features
+    return 4 * n_slots + (13 + 29) * rows + 56 * window + 12
+
+
+def k3_ops(window: int, n_features: int, iters: int) -> int:
+    rows = window * n_features
+    per_iter = (rows * (K3_POSE_OPS_PER_ROW + K3_POINT_OPS_PER_ROW
+                        + K3_SOLVE3_OPS) + window * K3_SOLVE6_OPS)
+    return max(iters, 0) * per_iter
+
+
+# arithmetic of kernel K4 (a triangulate_pair call), per query feature: the
+# two unit viewing rays and their angle 60, the two projection matrices'
+# share 10, the DLT rows and their normalisation 50, A^T A 112, the 3x3
+# start 45, two shifted 4x4 Cholesky solves and normalisations 130, the two
+# reprojections 70, the gates and the dedupe 15
+K4_OPS_PER_QUERY = 60 + 10 + 50 + 112 + 45 + 130 + 70 + 15
+
+
+def k4_bytes(n_features: int) -> int:
+    """Least traffic of K4, with every query feature creating a landmark (at
+    most ``n_features``): both keyframes' pixels (16 B a feature) and links
+    read (8 B), the match read (13 B), the poses (56 B), each created
+    landmark's row written (17 B) and its two links (8 B), the cursors."""
+    return (16 + 8 + 13 + 17 + 8) * n_features + 56 + 16
+
+
+def k4_ops(n_features: int) -> int:
+    return n_features * K4_OPS_PER_QUERY
+
+
 def bound_ms(n_bytes: int, n_ops: int = 0) -> float:
     """The least time of a kernel on an H100: the larger of its bytes over
     the memory rate and its float32 operations over the float32 rate."""

@@ -12,7 +12,10 @@ pipeline (and ``match_frames_batched`` over 8 consecutive pairs of its
 frames, bit for bit the per-pair loop); the online scan (per-frame
 tracking, keyframes, local BA) as one run, streamed in 8-frame chunks,
 and with a depth hole (the left 200
-columns: triangulated landmarks, so local BA iterates); the long-stress
+columns: triangulated landmarks, so local BA iterates); ``System`` over
+240 frames of the benchmark cell ``rgbd.system_disk_holes`` (TUM files
+with the hole model, tracking against the local map), judged by the cell's
+reference and limits; the long-stress
 tool (``tools/long_stress.py``): the sequence tiled on the card to 2160
 frames (the keyframe ring wraps, the landmark table is compacted at full
 capacity, no landmark may be dropped), then split at frame 1200 and
@@ -1155,6 +1158,59 @@ def run_hole_scan(grays, depths, gt_t) -> dict:
     return res
 
 
+# the hole cell's System pass: the benchmark's own feed at the cell's
+# configuration (fr1/desk's camera and speeds, the hole model, tracking
+# against the local map), its first HOLE_SYSTEM_FRAMES frames, one pass
+HOLE_SYSTEM_CELL = "rgbd.system_disk_holes"
+HOLE_SYSTEM_FRAMES = 240
+HOLE_SYSTEM_SEED = 3200000105
+
+
+def run_system_holes(device="cuda") -> dict:
+    """``System --pipeline scan --run_global_ba`` over TUM files written
+    with the hole model, through the benchmark cell's feed and judged by
+    its reference: the keyframe events, ``System``'s counts of local BA
+    iterations, triangulated landmarks and local-map matches, the share of
+    events whose local BA iterated (one read a call, here only), K3's and
+    K4's launches, and the reference's numbers against the cell's limits."""
+    from slambench import feeds
+    from slambench import run as harness
+    from visionx_slam_torch.tracking import scan_pipeline as SP
+
+    spec = harness.load_cell(HOLE_SYSTEM_CELL)
+    traffic = dict(spec["traffic"], frames=HOLE_SYSTEM_FRAMES)
+    feed = feeds.load(traffic["feed"])(spec["config"], traffic,
+                                       HOLE_SYSTEM_SEED, device)
+    feed.write()
+    iterated = []
+    real = SP.local_ba
+
+    def spy(ms, cam, opts):
+        out = real(ms, cam, opts)
+        iterated.append(int(out[1].iterations) > 0)
+        return out
+
+    timings: dict = {}
+    _zero_k34()
+    SP.local_ba = spy
+    try:
+        t0 = time.perf_counter()
+        summary, path = feed.one_pass(timings)
+        wall = time.perf_counter() - t0
+    finally:
+        SP.local_ba = real
+    res = {"frames": HOLE_SYSTEM_FRAMES, "seconds": wall,
+           **{k: timings[k] for k in ("#kf_events", "#lba_iterations",
+                                      "#tri_landmarks", "#localmap_matches")},
+           "events_iterated": sum(iterated), "tracked": summary["n_tracked"],
+           "archived_keyframes": summary["global_ba"].get("archived_keyframes"),
+           **_k34()}
+    feed.outs = [(summary, path)]
+    judged = feed.judge()
+    res["checks"] = {k: [judged[k], lim["limit"]] for k, lim in spec["limits"].items()}
+    return res
+
+
 def run_stress(grays, depths, gt_t) -> dict:
     """The long-stress tool over the sequence tiled to ``STRESS_FRAMES``
     frames on the card, then split at ``STRESS_SPLIT`` (see the module
@@ -1640,7 +1696,8 @@ def _brief(m: dict) -> dict:
             "cli_seconds", "loader", "device", "k1_launches", "lba_launches",
             "tri_launches", "host_reads_per_frame", "global_ba", "scan_stats", "keyframe_flags")
     out = {k: m[k] for k in keep if k in m}
-    out["stage_seconds"] = {k: v["total_s"] for k, v in m["stage_timings"].items()}
+    out["stage_seconds"] = {k: v["total_s"] for k, v in m["stage_timings"].items()
+                            if isinstance(v, dict)}
     return out
 
 
@@ -2135,6 +2192,21 @@ def main() -> int:
         _require(lo <= hole["landmarks"] <= hi,
                  f"hole landmarks {hole['landmarks']} in [{lo}, {hi}]")
 
+    # ---- 6b. System over TUM files with the hole model (the cell
+    # rgbd.system_disk_holes): triangulation, local BA, the local map ----
+    s_holes = run_system_holes()
+    print("system holes " + json.dumps(s_holes) + f" ({card})", flush=True)
+    _require(s_holes["tracked"] == s_holes["frames"], "system holes tracked every frame")
+    _require(s_holes["#lba_iterations"] > 0 and s_holes["#tri_landmarks"] > 0
+             and s_holes["#localmap_matches"] > 0,
+             "system holes: local BA iterated, triangulation and the local map worked")
+    _require(s_holes["lba_launches"] == s_holes["#kf_events"] > 0,
+             "system holes: one K3 launch a keyframe event")
+    _require(2 * s_holes["events_iterated"] >= s_holes["#kf_events"],
+             "system holes: local BA iterated in at least half the events")
+    _require(all(v <= lim for v, lim in s_holes["checks"].values()),
+             f"system holes within the cell's limits: {s_holes['checks']}")
+
     # ---- 7. the long-stress tool: 2160 frames, ring wrap, compaction,
     # no landmark dropped, split at 1200 ----
     _zero_k34()
@@ -2543,7 +2615,8 @@ def main() -> int:
     # K3 and K4 on every path that K1 runs on (stress: both of its runs;
     # degradation: every row; bench: its process, warm-ups included)
     k34_paths = {
-        "offline": res, "scan": scan, "hole_scan": hole, "stress": stress,
+        "offline": res, "scan": scan, "hole_scan": hole,
+        "system_holes": s_holes, "stress": stress,
         "degradation": degr_k34, "real_data": real, "lanes": lanes,
         "mono_offline": mono, "mono_scan": mscan, "mono_loop_scale": ls,
         "mono_loop_merge": lm, "mono_loop_folded": lf, "gba": gba,

@@ -54,7 +54,9 @@ def host_runs(root, tmp_path_factory):
 
 def test_host_pipeline_matches_the_jax_system(host_runs):
     jsys, js, tsys, ts, _ = host_runs
-    assert dataclasses.asdict(tsys.cfg.tracking) == dataclasses.asdict(jsys.cfg.tracking)
+    opts = dataclasses.asdict(tsys.cfg.tracking)
+    assert opts.pop("track_local_map") is False     # the port's own, off
+    assert opts == dataclasses.asdict(jsys.cfg.tracking)
     assert [r.state for r in tsys.results] == [r.state for r in jsys.results]
     assert ([r.is_keyframe for r in tsys.results]
             == [r.is_keyframe for r in jsys.results])

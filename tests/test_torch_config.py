@@ -1,7 +1,8 @@
 """The port's configuration and command line against the JAX package's:
 both ``.cfg`` files and a command line parse to equal values (exactly; the
-port has one more field, ``device``), the command line wins over the file,
-and an unknown key warns."""
+port has two more fields, ``device`` and ``TrackingOptions.track_local_map``,
+a widening the reference lacks, off by default), the command line wins over
+the file, and an unknown key warns."""
 
 import dataclasses
 import logging
@@ -16,11 +17,14 @@ from visionx_slam_torch.cli import main as tmain
 from visionx_slam_torch.utils import config as tconfig
 
 CONFIG_DIR = os.path.join(os.path.dirname(__file__), "..", "config")
+# the port's own fields: SystemConfig's and TrackingOptions'
+PORT_ONLY = {"device", "track_local_map"}
 
 
 def _same(t_cfg, j_cfg, device="cuda"):
     d = tconfig.config_to_dict(t_cfg)
     assert d.pop("device") == device
+    assert d.pop("track_local_map") is False
     assert d == jconfig.config_to_dict(j_cfg)
 
 
@@ -28,7 +32,8 @@ def test_defaults_fields_and_order():
     t_names = [f.name for f in dataclasses.fields(tconfig.SystemConfig)]
     j_names = [f.name for f in dataclasses.fields(jconfig.SystemConfig)]
     assert [n for n in t_names if n != "device"] == j_names
-    assert ([f.name for f in dataclasses.fields(tconfig.TrackingOptions)]
+    assert ([f.name for f in dataclasses.fields(tconfig.TrackingOptions)
+             if f.name not in PORT_ONLY]
             == [f.name for f in dataclasses.fields(jconfig.TrackingOptions)])
     _same(tconfig.SystemConfig(), jconfig.SystemConfig())
 
@@ -59,9 +64,9 @@ def test_cli_argv_parses_equal_and_wins_over_the_file(tmp_path):
     assert t_cfg.tracking.min_matches == 33       # the file fills the rest
     assert t_cfg.tracking.enable_culling is True and t_cfg.pipeline == "scan"
     assert t_cfg.run_global_ba is True and t_cfg.tracking.enable_local_ba is False
-    # the flag surfaces are the same apart from --device
+    # the flag surfaces are the same apart from the port's own fields
     flags = lambda p: {a.dest for a in p._actions} - {"help"}
-    assert flags(tmain.build_parser()) - {"device"} == flags(jmain.build_parser())
+    assert flags(tmain.build_parser()) - PORT_ONLY == flags(jmain.build_parser())
 
 
 def test_unknown_key_and_bad_value_warn(tmp_path, caplog):

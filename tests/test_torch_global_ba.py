@@ -90,9 +90,13 @@ def maps(kf_inputs):
 
 
 def test_tracking_options_are_a_copy():
+    """The JAX package's fields and defaults, and the port's own widening
+    ``track_local_map``, off."""
     import dataclasses
 
-    assert dataclasses.asdict(TrackingOptions()) == dataclasses.asdict(JOpts())
+    opts = dataclasses.asdict(TrackingOptions())
+    assert opts.pop("track_local_map") is False
+    assert opts == dataclasses.asdict(JOpts())
 
 
 def test_build_keyframe_map_tables_equal(maps):

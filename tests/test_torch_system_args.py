@@ -1,6 +1,7 @@
 """``System --pipeline offline`` calls ``run_offline_pipeline`` as the JAX
 package's ``System`` does: the same positional inputs and the same keyword
-set with the same values, apart from the port's ``device``. A spy takes the
+set with the same values, apart from the port's ``device`` (and the port's
+own tracking option ``track_local_map``, off). A spy takes the
 pipeline's place in each package and raises, so no pipeline runs: each side
 only reads the 6 frames written to disk."""
 
@@ -71,4 +72,6 @@ def test_offline_pipeline_gets_the_jax_systems_arguments(root, tmp_path,
     for p, j in zip(pargs[1:3], jargs[1:3]):                          # frames
         assert p.shape == j.shape == (T, 480, 640)
         np.testing.assert_array_equal(p, j)
-    assert asdict(pargs[3]) == asdict(jargs[3])                       # options
+    opts = asdict(pargs[3])
+    assert opts.pop("track_local_map") is False                       # options
+    assert opts == asdict(jargs[3])

@@ -21,7 +21,7 @@ from slambench import run
 from slambench.data import scene
 from slambench.reference import files
 from visionx_slam_torch.data import tum
-from visionx_slam_torch.system.system import System
+from visionx_slam_torch.system.system import SCAN_COUNTS, System
 from visionx_slam_torch.utils.config import SystemConfig
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -76,7 +76,7 @@ def test_the_python_loader_returns_the_written_arrays(written):
 def test_timings_hold_the_stage_clock_and_tile_the_run(runs):
     (system, summary, wall), _, timings = runs
     assert summary["global_ba"]["archived_keyframes"] > 8
-    counts = ("#host_syncs", "#decode_ahead")
+    counts = ("#host_syncs", "#decode_ahead", *SCAN_COUNTS)
     for k in (*STAGES, "gba/harvest", "gba/union", "gba/solve", *counts):
         assert k in timings, k
     assert all(k in STAGES or "/" in k or k in counts for k in timings)

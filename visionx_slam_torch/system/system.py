@@ -67,6 +67,12 @@ DISPARITY_BF = 1 / 1.425e-3
 # consumer asked for them, added to ``timings`` at the end of a run
 DECODE_AHEAD = "#decode_ahead"
 
+# what the scan's keyframe events did, added to ``timings`` once a run of the
+# scan pipeline: the scan's ``ScanCounters`` under these keys
+SCAN_COUNTS = {"#kf_events": "kf_events", "#lba_iterations": "ba_iterations",
+               "#tri_landmarks": "tri_landmarks",
+               "#localmap_matches": "localmap_matches"}
+
 # ``summary["stage_timings"]``'s names of the stage clock's keys
 _TIMING_NAMES = {"gba": "global_ba", "scan": "scan_dispatch",
                  "scan/upload": "upload"}
@@ -406,6 +412,7 @@ class System:
         self._before = dict(timings)
         self._clock = StageClock(timings, self.device)
         self._decode_ahead = None
+        self._counts = {}
         with self._clock.active():
             if pipeline == "scan":
                 summary = self._run_scan(entries)
@@ -416,6 +423,8 @@ class System:
             self._clock.lap("outputs")
         if self._decode_ahead is not None:
             timings[DECODE_AHEAD] = timings.get(DECODE_AHEAD, 0) + self._decode_ahead
+        for key, n in self._counts.items():
+            timings[key] = timings.get(key, 0) + n
         return summary
 
     def _stage_timings(self) -> dict:
@@ -436,7 +445,7 @@ class System:
 
     def _finish(self, summary: dict) -> dict:
         self._clock.lap("outputs")
-        summary["stage_timings"] = self._stage_timings()
+        summary["stage_timings"] = dict(self._stage_timings(), **self._counts)
         with open(os.path.join(self.cfg.output_dir, "metrics.json"), "w") as f:
             json.dump(summary, f, indent=2)
         return summary
@@ -623,7 +632,8 @@ class System:
         summary["decode_time_s"] = self._decode_s
         summary["decode_ahead"] = self._decode_ahead
         summary["scan_fps"] = len(entries) / max(t_scan, 1e-9)
-        summary["scan_stats"] = scan.stats()
+        summary["scan_stats"] = stats = scan.stats()
+        self._counts = {key: stats.get(k, 0) for key, k in SCAN_COUNTS.items()}
         return self._finish(summary)
 
     # ------------------------------------------------------------------

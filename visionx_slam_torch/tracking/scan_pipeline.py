@@ -48,6 +48,7 @@ from ..ops.camera import CameraParams, backproject, project_pinhole
 from ..ops.se3 import Pose, identity_pose, matrix_to_quat, se3_compose, se3_matrix
 from ..utils.config import TrackingOptions
 from ..utils.logging import span
+from . import local_map
 from . import mapstate as msl
 from . import stages
 from .mapstate import FREE, MapState
@@ -117,7 +118,9 @@ class ScanCounters:
     keyframe culling's included), landmark compactions, keyframe events,
     the local BA calls that ran as one launch of kernel K3 (every one on
     the card, none on the CPU), the keyframes culling removed, and the
-    local BA iterations and culled landmarks (device scalars, read once)."""
+    local BA iterations, culled landmarks, the landmarks that two-view
+    triangulation created and the local map's matches (device scalars, read
+    once)."""
 
     def __init__(self, device=None):
         self.host_syncs = 0
@@ -127,6 +130,8 @@ class ScanCounters:
         self.kf_culled = 0
         self.ba_iterations = torch.zeros((), dtype=torch.int64, device=device)
         self.lm_culled = torch.zeros((), dtype=torch.int64, device=device)
+        self.tri_landmarks = torch.zeros((), dtype=torch.int64, device=device)
+        self.localmap_matches = torch.zeros((), dtype=torch.int64, device=device)
 
     def read(self, *vals: torch.Tensor) -> list:
         """Device values (scalars or vectors) -> one flat list of host
@@ -213,15 +218,32 @@ def tracking_ba_options(opts: TrackingOptions) -> BAOptions:
     )
 
 
+def _triangulate(ms: MapState, cam: CameraParams, opts: TrackingOptions,
+                 slot_a: int, slot_b: int, res, tally) -> MapState:
+    """``stages.triangulate_pair`` under the tracking options; ``tally``
+    (an int64 device scalar, or None) gains the landmarks it created: the
+    allocation cursor's advance, with no host read."""
+    if tally is not None:
+        tally.sub_(ms.next_lm)
+    ms = stages.triangulate_pair(
+        ms, cam, slot_a, slot_b, opts.triangulation_min_angle_deg,
+        opts.triangulation_max_reproj_error, res=res)
+    if tally is not None:
+        tally.add_(ms.next_lm)
+    return ms
+
+
 def insert_init_pair(ms: MapState, cam: CameraParams, opts: TrackingOptions,
                      obs1: FrameObs, frame_id1: int, obs2: FrameObs,
                      frame_id2: int, pose2: Pose, cursor: int,
-                     res: matching.MatchResult | None = None):
+                     res: matching.MatchResult | None = None,
+                     tally: torch.Tensor | None = None):
     """The map of a finished two-frame initialization: both frames become
     keyframes (the first at the identity) in the ring slots after
     ``cursor``, their depth landmarks, then the triangulated ones (``res``:
-    the raw knn2 match of the two frames, when the caller has it). Returns
-    (map, slot1, slot2)."""
+    the raw knn2 match of the two frames, when the caller has it; ``tally``:
+    a device counter of the landmarks triangulated). Returns (map, slot1,
+    slot2)."""
     dev = obs1.px.device
     K, N = ms.kf_capacity, ms.n_features
     free = torch.full((N,), FREE, dtype=torch.int32, device=dev)
@@ -234,9 +256,7 @@ def insert_init_pair(ms: MapState, cam: CameraParams, opts: TrackingOptions,
         obs2.depth, fresh_links=True, slot=(cursor + 1) % K)
     ms = stages.depth_landmarks(ms, cam, slot1, ident)
     ms = stages.depth_landmarks(ms, cam, slot2, pose2)
-    ms = stages.triangulate_pair(
-        ms, cam, slot1, slot2, opts.triangulation_min_angle_deg,
-        opts.triangulation_max_reproj_error, res=res)
+    ms = _triangulate(ms, cam, opts, slot1, slot2, res, tally)
     return ms, slot1, slot2
 
 
@@ -244,12 +264,13 @@ def insert_tracked_keyframe(ms: MapState, cam: CameraParams,
                             opts: TrackingOptions, obs: FrameObs,
                             frame_id: int, pose: Pose, prev_slot: int,
                             slot: int, links: torch.Tensor | None = None,
-                            res: matching.MatchResult | None = None):
+                            res: matching.MatchResult | None = None,
+                            tally: torch.Tensor | None = None):
     """A tracked frame becomes the keyframe of ring slot ``slot``: its
     features (``links``: the landmarks they inherit, none by default), its
     depth landmarks, and the landmarks triangulated against the previous
     keyframe ``prev_slot`` (``res``: their raw knn2 match, when the caller
-    has it). Returns the map."""
+    has it; ``tally``: a device counter of them). Returns the map."""
     fresh = links is None
     if fresh:
         links = torch.full((ms.n_features,), FREE, dtype=torch.int32,
@@ -258,9 +279,7 @@ def insert_tracked_keyframe(ms: MapState, cam: CameraParams,
         ms, frame_id, pose, obs.px, obs.desc, obs.valid, links, obs.depth,
         fresh_links=fresh, slot=slot)
     ms = stages.depth_landmarks(ms, cam, slot, pose)
-    return stages.triangulate_pair(
-        ms, cam, prev_slot, slot, opts.triangulation_min_angle_deg,
-        opts.triangulation_max_reproj_error, res=res)
+    return _triangulate(ms, cam, opts, prev_slot, slot, res, tally)
 
 
 def _frame_obs(obs: FrameObs, i: int) -> FrameObs:
@@ -292,6 +311,9 @@ def build_scan_step(
     ctr = counters if counters is not None else ScanCounters()
     thr = opts.max_reproj_error
     ba_opts = tracking_ba_options(opts)
+    # the local map: the last keyframe and the ring's slots before it, as
+    # many as local BA's window
+    W_LOCAL = min(max(1, opts.ba_window_size), K)
 
     def mat_pose(R, t):
         return Pose(matrix_to_quat(R), t)
@@ -340,6 +362,14 @@ def build_scan_step(
                   and bool(sol_ok) and n_inl >= opts.min_inliers)
         if pnp_ok:
             pose, inliers, ok = sol.pose, n_inl, True
+            if opts.track_local_map:
+                span("step")    # the consensus read's wait stays in ``step``
+                pose, n_local = local_map.track_local_map(
+                    st.ms, cam, pose, obs.px, obs.valid, bits, pop,
+                    st.kf_lm_pts, pts2d, sol.inlier_mask & pvalid, m.idx,
+                    st.ms.kf_feat_lm[st.last_kf_slot],
+                    st.kf_cursor - W_LOCAL, W_LOCAL - 1, (W_IMG, H_IMG), thr)
+                ctr.localmap_matches += n_local
         else:
             mf = matching.match_frames(st.last_obs.desc, st.last_obs.valid,
                                        obs.desc, obs.valid)
@@ -428,7 +458,7 @@ def build_scan_step(
             cursor = st.kf_cursor
             ms, slot1, slot2 = insert_init_pair(
                 st.ms, cam, opts, io, st.init_frame_id, obs, frame_id, pose2,
-                cursor, m_raw)
+                cursor, m_raw, tally=ctr.tri_landmarks)
             st = st._replace(
                 ms=ms, init_kf_slot=slot1, last_kf_slot=slot2,
                 last_kf_id=frame_id, cur_pose=pose2, last_obs=obs,
@@ -470,7 +500,8 @@ def build_scan_step(
             links = None
         slot = st.kf_cursor % K
         ms = insert_tracked_keyframe(ms, cam, opts, obs, frame_id, st.cur_pose,
-                                     prev_slot, slot, links, kf_match)
+                                     prev_slot, slot, links, kf_match,
+                                     tally=ctr.tri_landmarks)
         if opts.enable_culling:
             ms, n_culled = stages.cull_landmarks(
                 ms, cam, opts.landmark_max_reproj_error,
@@ -675,11 +706,14 @@ def _frame_out(recs: list, dev) -> FrameOut:
 
 
 def _counter_stats(ctr: ScanCounters, frames: int) -> dict:
+    ba_iterations, lm_culled, tri_landmarks, localmap_matches = torch.stack(
+        [ctr.ba_iterations, ctr.lm_culled, ctr.tri_landmarks,
+         ctr.localmap_matches]).tolist()
     return dict(frames=frames, host_syncs=ctr.host_syncs,
                 compactions=ctr.compactions, kf_events=ctr.kf_events,
                 lba_kernel=ctr.lba_kernel, kf_culled=ctr.kf_culled,
-                ba_iterations=int(ctr.ba_iterations),
-                lm_culled=int(ctr.lm_culled))
+                ba_iterations=ba_iterations, lm_culled=lm_culled,
+                tri_landmarks=tri_landmarks, localmap_matches=localmap_matches)
 
 
 def run_scan_pipeline(
@@ -794,5 +828,6 @@ def run_scan_pipeline_batched(
             **{k: sum(s[k] for s in lane_stats)
                for k in ("host_syncs", "compactions", "kf_events",
                          "lba_kernel", "kf_culled",
-                         "ba_iterations", "lm_culled")})
+                         "ba_iterations", "lm_culled", "tri_landmarks",
+                         "localmap_matches")})
     return _stack(list(sts)), out

@@ -120,6 +120,13 @@ class TrackingOptions:
     # track against (measured: a 25-inlier pair yielding ONE landmark).
     # 0 = strict reference behavior (no viability gate).
     min_init_landmarks: int = 0
+    # The port's widening (not a reference flag, nor the JAX package's):
+    # after the PnP against the last keyframe, match the landmarks of the
+    # ring's ba_window_size - 1 keyframes before it by projection and refine
+    # the pose on both (tracking/local_map.py). The reference tracks against
+    # the last keyframe alone, so each keyframe's error is carried on like
+    # odometry. False = the reference's tracking, bit for bit.
+    track_local_map: bool = False
 
 
 @dataclass

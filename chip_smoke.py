@@ -1061,6 +1061,7 @@ def run_scan(grays, depths, gt_t) -> dict:
 
     from visionx_slam_torch.models import estimation, local_ba
     from visionx_slam_torch.ops import detect
+    from visionx_slam_torch.tracking import scan_pipeline as SP
     from visionx_slam_torch.tracking import stages
 
     cam = _camera()
@@ -1092,6 +1093,11 @@ def run_scan(grays, depths, gt_t) -> dict:
     res["host_syncs_per_frame"] = stats["host_syncs"] / T
     res["ba_iterations_per_kf_event"] = (stats["ba_iterations"]
                                          / max(stats["kf_events"], 1))
+    # the steady tracked frame's graph: replayed in every frame that took
+    # the GOOD branch, captured in the warm-up run
+    res["good_branch_frames"] = int((out.state[:-1] == 1).sum())
+    res["track_graph_pool_bytes"] = sum(
+        g.pool_bytes for g in SP._TRACK_GRAPHS.values())
 
     # streamed in 8-frame chunks, the state threaded through
     lat, st = [], None
@@ -1170,9 +1176,11 @@ def run_system_holes(device="cuda") -> dict:
     """``System --pipeline scan --run_global_ba`` over TUM files written
     with the hole model, through the benchmark cell's feed and judged by
     its reference: the keyframe events, ``System``'s counts of local BA
-    iterations, triangulated landmarks and local-map matches, the share of
-    events whose local BA iterated (one read a call, here only), K3's and
-    K4's launches, and the reference's numbers against the cell's limits."""
+    iterations, triangulated landmarks and local-map matches, the steady
+    tracked frames replayed as the scan's graph and the graphs captured, the
+    share of events whose local BA iterated (one read a call, here only),
+    K3's and K4's launches, and the reference's numbers against the cell's
+    limits."""
     from slambench import feeds
     from slambench import run as harness
     from visionx_slam_torch.tracking import scan_pipeline as SP
@@ -1201,7 +1209,8 @@ def run_system_holes(device="cuda") -> dict:
         SP.local_ba = real
     res = {"frames": HOLE_SYSTEM_FRAMES, "seconds": wall,
            **{k: timings[k] for k in ("#kf_events", "#lba_iterations",
-                                      "#tri_landmarks", "#localmap_matches")},
+                                      "#tri_landmarks", "#localmap_matches",
+                                      "#track_graph", "#track_graph_captures")},
            "events_iterated": sum(iterated), "tracked": summary["n_tracked"],
            "archived_keyframes": summary["global_ba"].get("archived_keyframes"),
            **_k34()}
@@ -2161,6 +2170,11 @@ def main() -> int:
     _require(scan["k1_launches"] > 0, "the scan launched K1")
     _require(scan["gn_launches"] > 0, "the scan launched K2")
     _require(scan["tracked"] >= int(0.95 * T), f"scan tracked {scan['tracked']}/{T}")
+    _require(scan["track_graph"] == scan["good_branch_frames"] > 0
+             and scan["track_graph_captures"] == 0,
+             f"the scan replayed its graph in every GOOD-branch frame "
+             f"({scan['track_graph']} of {scan['good_branch_frames']}) and "
+             f"captured it in the warm-up run")
     if T == 240:
         _require(scan["ate_m"] is not None and scan["ate_m"] <= 2 * SCAN_ATE_JAX,
                  f"scan ATE {scan['ate_m']} m <= {2 * SCAN_ATE_JAX} m")
@@ -2202,6 +2216,8 @@ def main() -> int:
              "system holes: local BA iterated, triangulation and the local map worked")
     _require(s_holes["lba_launches"] == s_holes["#kf_events"] > 0,
              "system holes: one K3 launch a keyframe event")
+    _require(s_holes["#track_graph"] >= s_holes["frames"] - 2,
+             f"system holes: {s_holes['#track_graph']} steady frames replayed")
     _require(2 * s_holes["events_iterated"] >= s_holes["#kf_events"],
              "system holes: local BA iterated in at least half the events")
     _require(all(v <= lim for v, lim in s_holes["checks"].values()),
@@ -2494,6 +2510,9 @@ def main() -> int:
     sys_pose, sys_tracked = sysr["offline"].pop("_pose"), sysr["offline"].pop("_tracked")
     print("system " + json.dumps(sysr) + f" ({card})", flush=True)
     s_scan, s_off, s_host, s_res = (sysr[k] for k in ("scan", "offline", "host", "resume"))
+    _require(s_scan["scan_stats"]["track_graph"] > 0,
+             f"system scan: {s_scan['scan_stats']['track_graph']} steady frames "
+             f"replayed")
     for name, m in (("scan", s_scan), ("offline", s_off), ("host", s_host)):
         _require(m["n_frames"] == T and m["device"] == "cuda",
                  f"system {name} ran {T} frames on the card")

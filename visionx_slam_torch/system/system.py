@@ -67,11 +67,15 @@ DISPARITY_BF = 1 / 1.425e-3
 # consumer asked for them, added to ``timings`` at the end of a run
 DECODE_AHEAD = "#decode_ahead"
 
-# what the scan's keyframe events did, added to ``timings`` once a run of the
-# scan pipeline: the scan's ``ScanCounters`` under these keys
+# what the scan's keyframe events did, and its steady tracked frames that
+# ran as a graph's replay and the graphs it captured, added to ``timings``
+# once a run of the scan pipeline: the scan's ``ScanCounters`` under these
+# keys
 SCAN_COUNTS = {"#kf_events": "kf_events", "#lba_iterations": "ba_iterations",
                "#tri_landmarks": "tri_landmarks",
-               "#localmap_matches": "localmap_matches"}
+               "#localmap_matches": "localmap_matches",
+               "#track_graph": "track_graph",
+               "#track_graph_captures": "track_graph_captures"}
 
 # ``summary["stage_timings"]``'s names of the stage clock's keys
 _TIMING_NAMES = {"gba": "global_ba", "scan": "scan_dispatch",

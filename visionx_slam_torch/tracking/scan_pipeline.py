@@ -12,6 +12,9 @@ becomes Python branches: a branch not taken costs nothing, as in the
 non-vmapped scan. Each decision needs device values on the host; a step
 gathers the flags it needs into as few reads as it can (one in a steady
 tracked frame, see ``track_branch``), and ``run_scan_pipeline`` counts them.
+On the card a steady tracked frame's device work up to that read
+(``track_segment``) is one CUDA graph, captured once a process and replayed
+once a frame (``TrackGraph``); CPU tensors run the same function eagerly.
 
 Host values in ``ScanState``: the state-machine scalars (state code, slots,
 frame ids, the last inlier count and parallax) are Python numbers, and
@@ -34,9 +37,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..models import estimation
 from ..models import local_ba as lba
 from ..models import matching
 from ..models.estimation import (
+    PnPResult,
     essential_ransac,
     essential_scale_from_depth,
     pnp_prior,
@@ -47,7 +52,7 @@ from ..models.orb_torch import orb_extract
 from ..ops.camera import CameraParams, backproject, project_pinhole
 from ..ops.se3 import Pose, identity_pose, matrix_to_quat, se3_compose, se3_matrix
 from ..utils.config import TrackingOptions
-from ..utils.logging import span
+from ..utils.logging import count_sync, span
 from . import local_map
 from . import mapstate as msl
 from . import stages
@@ -112,12 +117,19 @@ class FrameRecord(NamedTuple):
     n_landmarks: torch.Tensor
 
 
+def _flat64(*vals: torch.Tensor) -> torch.Tensor:
+    """Device values (scalars or vectors) -> one flat float64 vector."""
+    return torch.cat([v.reshape(-1).to(torch.float64) for v in vals])
+
+
 class ScanCounters:
     """What a run did that the outputs do not show: device-to-host reads
     made by the step's decisions (local BA's convergence reads and the
     keyframe culling's included), landmark compactions, keyframe events,
     the local BA calls that ran as one launch of kernel K3 (every one on
-    the card, none on the CPU), the keyframes culling removed, and the
+    the card, none on the CPU), the keyframes culling removed, the steady
+    tracked frames whose device work ran as a replay of a ``TrackGraph``
+    and the graphs this counter's steps captured (none on the CPU), and the
     local BA iterations, culled landmarks, the landmarks that two-view
     triangulation created and the local map's matches (device scalars, read
     once)."""
@@ -128,6 +140,8 @@ class ScanCounters:
         self.kf_events = 0
         self.lba_kernel = 0
         self.kf_culled = 0
+        self.track_graph = 0
+        self.track_graph_captures = 0
         self.ba_iterations = torch.zeros((), dtype=torch.int64, device=device)
         self.lm_culled = torch.zeros((), dtype=torch.int64, device=device)
         self.tri_landmarks = torch.zeros((), dtype=torch.int64, device=device)
@@ -135,9 +149,11 @@ class ScanCounters:
 
     def read(self, *vals: torch.Tensor) -> list:
         """Device values (scalars or vectors) -> one flat list of host
-        numbers, in one transfer."""
+        numbers, in one transfer; a lone float64 vector is read as it is."""
         self.host_syncs += 1
-        return torch.cat([v.reshape(-1).to(torch.float64) for v in vals]).tolist()
+        if len(vals) == 1 and vals[0].dtype == torch.float64 and vals[0].dim() == 1:
+            return vals[0].tolist()
+        return _flat64(*vals).tolist()
 
 
 def _empty_obs(n: int, device) -> FrameObs:
@@ -193,6 +209,122 @@ def _empty_kf_cache(n: int, device) -> dict:
         kf_lm_valid=torch.zeros((n,), dtype=torch.bool, device=device),
         kf_px2=torch.zeros((n, 2), device=device),
     )
+
+
+def _ok_pose(sol: PnPResult) -> torch.Tensor:
+    return (sol.ok & torch.isfinite(sol.pose.q).all(-1)
+            & torch.isfinite(sol.pose.t).all(-1))
+
+
+class TrackSegment(NamedTuple):
+    """A steady tracked frame's device work up to its read."""
+
+    m_raw: matching.MatchResult  # knn2 match against the reference keyframe
+    m: matching.MatchResult      # after the reference's distance filter
+    pts2d: torch.Tensor          # [N,2] the frame's pixel of each match
+    pvalid: torch.Tensor         # [N] bool matched, with a sane landmark
+    sol: PnPResult               # the motion-prior PnP
+    flags: torch.Tensor          # [6] f64 what the frame's read brings back
+
+
+def track_segment(cam: CameraParams, thr: float, refine_iters: int,
+                  kf_bits, kf_pop, kf_fvalid, kf_lm_pts, kf_lm_valid, kf_px2,
+                  px, valid, bits, pop, pose_q, pose_t,
+                  next_lm) -> TrackSegment:
+    """TRACKING_GOOD up to its consensus read: the frame's knn2 match
+    (``px``, ``valid``, bit planes ``bits`` and popcounts ``pop``) against
+    the reference keyframe's caches (``kf_*``, ``ScanState``'s fields),
+    ``pnp_prior`` from the pose (``pose_q``, ``pose_t``), and the flags
+    the read brings back: matches, PnP pairs, inliers, the pose's
+    soundness, the PnP branch's parallax (it depends only on the match) and
+    the map's allocation cursor ``next_lm`` (for the frame's keyframe
+    event). Tensors in and out, no host read and no randomness, so
+    ``TrackGraph`` can capture it. Ends the ``match`` span; its two GN
+    calls end ``gn``."""
+    m_raw = matching.knn2_from_bits(kf_bits, kf_pop, kf_fvalid, bits, pop,
+                                    valid)
+    m = matching.reference_distance_filter(m_raw)
+    span("match")
+    pts2d = px[m.idx]
+    pvalid = m.valid & kf_lm_valid
+    sol = pnp_prior(cam, kf_lm_pts, pts2d, pvalid, Pose(pose_q, pose_t), thr,
+                    refine_iters=refine_iters)
+    flags = _flat64(m.valid.sum(), pvalid.sum(), sol.n_inliers, _ok_pose(sol),
+                    stages.parallax_px(kf_px2, px, m), next_lm)
+    return TrackSegment(m_raw, m, pts2d, pvalid, sol, flags)
+
+
+class TrackGraph:
+    """``track_segment`` captured once as a CUDA graph over static input
+    buffers (``args``: its tensor arguments in order; the first six are
+    the reference keyframe's caches), replayed once a steady tracked
+    frame. ``run`` copies the frame's tensors, the pose and the map's
+    cursor in every frame, and the caches only when it is given other
+    cache tensors than it last copied: the scan replaces them (a keyframe
+    event, an initialization, a reset, a resumed state, another lane's
+    state), never changes them in place. The outputs are the graph's own
+    buffers, which the next replay overwrites. ``k2_launches``: the K2
+    launches a replay runs; ``pool_bytes``: the device memory the capture
+    reserved for the graph's private pool."""
+
+    def __init__(self, segment, args: tuple):
+        self.args = tuple(a.clone() for a in args)
+        self.cache = args[:6]
+        launches = estimation.gn_launches
+        with torch.cuda.device(args[0].device):
+            # lazy set-up (cuBLAS's handle and workspace, K2's library)
+            # outside the capture, on the side stream that captures: one
+            # more stream, one more cuBLAS workspace
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                segment(*self.args)
+            torch.cuda.synchronize()
+            count_sync()
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved()
+            before = estimation.gn_launches
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, stream=side):
+                self.out = segment(*self.args)
+            self.k2_launches = estimation.gn_launches - before
+            self.pool_bytes = torch.cuda.memory_reserved() - reserved
+        # the warm-up and the capture ran no frame's work
+        estimation.gn_launches = launches
+
+    def run(self, args: tuple) -> TrackSegment:
+        """Copy ``args`` in, replay; ends the ``match`` span after the
+        copies and ``gn`` after the replay."""
+        if any(a is not b for a, b in zip(args[:6], self.cache)):
+            for dst, src in zip(self.args[:6], args[:6]):
+                dst.copy_(src)
+            self.cache = args[:6]
+        for dst, src in zip(self.args[6:], args[6:]):
+            dst.copy_(src)
+        span("match")
+        self.graph.replay()
+        estimation.gn_launches += self.k2_launches
+        span("gn")
+        return self.out
+
+
+# the process's graphs of ``track_segment``, by what enters them: the
+# device, the feature cap and the step's constants (so steps built for each
+# chunk, frame or lane share one capture)
+_TRACK_GRAPHS: dict = {}
+
+
+def _track_graph(key: tuple, segment, args: tuple,
+                 ctr: ScanCounters) -> TrackGraph | None:
+    """The graph of ``key`` for CUDA tensors ``args``, captured now where
+    the process has none (counted in ``ctr``); None for CPU tensors."""
+    if args[0].device.type != "cuda":
+        return None
+    graph = _TRACK_GRAPHS.get(key)
+    if graph is None:
+        graph = _TRACK_GRAPHS[key] = TrackGraph(segment, args)
+        ctr.track_graph_captures += 1
+    return graph
 
 
 def frame_generator(frame_id: int, stream: int, device,
@@ -318,31 +450,33 @@ def build_scan_step(
     def mat_pose(R, t):
         return Pose(matrix_to_quat(R), t)
 
-    def ok_pose(sol) -> torch.Tensor:
-        return (sol.ok & torch.isfinite(sol.pose.q).all(-1)
-                & torch.isfinite(sol.pose.t).all(-1))
+    refine = min(2, opts.pnp_refine_iters)
+    graph_key = (N, cam, thr, refine, matching.NN_RATIO)
+
+    def segment(*args) -> TrackSegment:
+        return track_segment(cam, thr, refine, *args)
 
     # ------------------------------------------------------------------
     def track_branch(st: ScanState, obs: FrameObs, bits, pop, frame_id: int):
-        """TRACKING_GOOD: motion-prior PnP against the last keyframe, the
-        full PnP RANSAC when that consensus is weak, the essential-matrix
-        fallback against the last frame when PnP fails. Returns (state,
-        n_matches, inliers, parallax, ok, raw knn2 match, next_lm)."""
+        """TRACKING_GOOD: motion-prior PnP against the last keyframe
+        (``track_segment``: eagerly for CPU tensors, a graph's replay for
+        CUDA ones), the full PnP RANSAC when that consensus is weak, the
+        essential-matrix fallback against the last frame when PnP fails.
+        Returns (state, n_matches, inliers, parallax, ok, raw knn2 match,
+        next_lm)."""
         dev = obs.px.device
-        m_raw = matching.knn2_from_bits(st.kf_bits, st.kf_pop, st.kf_fvalid,
-                                        bits, pop, obs.valid)
-        m = matching.reference_distance_filter(m_raw)
-        span("match")
-        pts2d = obs.px[m.idx]
-        pvalid = m.valid & st.kf_lm_valid
-        sol = pnp_prior(cam, st.kf_lm_pts, pts2d, pvalid, st.cur_pose, thr,
-                        refine_iters=min(2, opts.pnp_refine_iters))
-        # the PnP branch's parallax depends only on the match, so it rides
-        # the same read as the consensus; the map cursor rides along for
-        # this frame's keyframe event
+        args = (st.kf_bits, st.kf_pop, st.kf_fvalid, st.kf_lm_pts,
+                st.kf_lm_valid, st.kf_px2, obs.px, obs.valid, bits, pop,
+                st.cur_pose.q, st.cur_pose.t, st.ms.next_lm)
+        graph = _track_graph((dev, *graph_key), segment, args, ctr)
+        if graph is None:
+            seg = segment(*args)
+        else:
+            seg = graph.run(args)
+            ctr.track_graph += 1
+        m_raw, m, pts2d, pvalid, sol, _ = seg
         n_matches, n_pairs, n_inl, sol_ok, parallax, next_lm = ctr.read(
-            m.valid.sum(), pvalid.sum(), sol.n_inliers, ok_pose(sol),
-            stages.parallax_px(st.kf_px2, obs.px, m), st.ms.next_lm)
+            seg.flags)
         n_matches, n_pairs, n_inl = int(n_matches), int(n_pairs), int(n_inl)
         if n_inl < max(2 * opts.min_inliers, (3 * n_pairs) // 10):
             # weak prior-only consensus: escalate to the full hypothesis fan
@@ -356,7 +490,7 @@ def build_scan_step(
                 depth_curr=None if depth_curr is None else depth_curr[None])
             sol = type(sol)(_select_pose(sol.pose, 0), sol.inlier_mask[0],
                             sol.n_inliers[0], sol.ok[0])
-            n_inl, sol_ok = ctr.read(sol.n_inliers, ok_pose(sol))
+            n_inl, sol_ok = ctr.read(sol.n_inliers, _ok_pose(sol))
             n_inl = int(n_inl)
         pnp_ok = (n_matches >= opts.min_matches and n_pairs >= opts.min_inliers
                   and bool(sol_ok) and n_inl >= opts.min_inliers)
@@ -370,6 +504,9 @@ def build_scan_step(
                     st.ms.kf_feat_lm[st.last_kf_slot],
                     st.kf_cursor - W_LOCAL, W_LOCAL - 1, (W_IMG, H_IMG), thr)
                 ctr.localmap_matches += n_local
+            elif graph is not None and sol is seg.sol:
+                # the next replay overwrites the graph's buffers
+                pose = Pose(pose.q.clone(), pose.t.clone())
         else:
             mf = matching.match_frames(st.last_obs.desc, st.last_obs.valid,
                                        obs.desc, obs.valid)
@@ -712,6 +849,8 @@ def _counter_stats(ctr: ScanCounters, frames: int) -> dict:
     return dict(frames=frames, host_syncs=ctr.host_syncs,
                 compactions=ctr.compactions, kf_events=ctr.kf_events,
                 lba_kernel=ctr.lba_kernel, kf_culled=ctr.kf_culled,
+                track_graph=ctr.track_graph,
+                track_graph_captures=ctr.track_graph_captures,
                 ba_iterations=ba_iterations, lm_culled=lm_culled,
                 tri_landmarks=tri_landmarks, localmap_matches=localmap_matches)
 
@@ -827,7 +966,8 @@ def run_scan_pipeline_batched(
             lanes=list(lane_stats), frames=B * T, extract_seconds=extract_s,
             **{k: sum(s[k] for s in lane_stats)
                for k in ("host_syncs", "compactions", "kf_events",
-                         "lba_kernel", "kf_culled",
+                         "lba_kernel", "kf_culled", "track_graph",
+                         "track_graph_captures",
                          "ba_iterations", "lm_culled", "tri_landmarks",
                          "localmap_matches")})
     return _stack(list(sts)), out

@@ -15,7 +15,9 @@ and with a depth hole (the left 200
 columns: triangulated landmarks, so local BA iterates); ``System`` over
 240 frames of the benchmark cell ``rgbd.system_disk_holes`` (TUM files
 with the hole model, tracking against the local map), judged by the cell's
-reference and limits; the long-stress
+reference and limits, and over 240 frames of ``rgbd.system_host_holes``
+(the same files through ``System``'s default pipeline, the host
+``Tracker`` with the local map, its ring harvested into the archive); the long-stress
 tool (``tools/long_stress.py``): the sequence tiled on the card to 2160
 frames (the keyframe ring wraps, the landmark table is compacted at full
 capacity, no landmark may be dropped), then split at frame 1200 and
@@ -1220,6 +1222,63 @@ def run_system_holes(device="cuda") -> dict:
     return res
 
 
+# the host cell's System pass: the same files and frames through System's
+# default pipeline, the host Tracker with the local map
+HOST_HOLE_CELL = "rgbd.system_host_holes"
+
+
+def run_system_host_holes(device="cuda") -> dict:
+    """``System --run_global_ba`` with its default pipeline, ``host``, over
+    the host cell's feed at the hole phase's frames and seed: the keyframe
+    events and the keyframes inserted, ``System``'s counts of local BA
+    iterations, triangulated landmarks and local-map matches, the Tracker's
+    reads a frame, the keyframes archived from its ring, the share of
+    events whose local BA iterated (one read a call, here only), K3's and
+    K4's launches, and the reference's numbers against the cell's
+    limits."""
+    from slambench import feeds
+    from slambench import run as harness
+    from visionx_slam_torch.tracking import frontend
+
+    spec = harness.load_cell(HOST_HOLE_CELL)
+    traffic = dict(spec["traffic"], frames=HOLE_SYSTEM_FRAMES)
+    feed = feeds.load(traffic["feed"])(spec["config"], traffic,
+                                       HOLE_SYSTEM_SEED, device)
+    feed.write()
+    timings: dict = {}
+    systems, iterated = [], []
+    real = frontend.local_ba
+
+    def spy(ms, cam, opts):
+        out = real(ms, cam, opts)
+        iterated.append(int(out[1].iterations) > 0)
+        return out
+
+    _zero_k34()
+    frontend.local_ba = spy
+    try:
+        t0 = time.perf_counter()
+        summary, path = feed.one_pass(timings, before=systems.append)
+        wall = time.perf_counter() - t0
+    finally:
+        frontend.local_ba = real
+    res = {"frames": HOLE_SYSTEM_FRAMES, "seconds": wall,
+           "events_iterated": sum(iterated),
+           **{k: timings[k] for k in ("#kf_events", "#lba_iterations",
+                                      "#tri_landmarks", "#localmap_matches")},
+           "keyframes_inserted": systems[0].tracker.kf_inserted,
+           "resets": systems[0].tracker.resets,
+           "tracked": summary["n_tracked"],
+           "archived_keyframes": summary["global_ba"].get("archived_keyframes"),
+           "host_reads_per_frame": summary["host_reads_per_frame"],
+           "host_syncs_per_frame": timings["#host_syncs"] / HOLE_SYSTEM_FRAMES,
+           **_k34()}
+    feed.outs = [(summary, path)]
+    judged = feed.judge()
+    res["checks"] = {k: [judged[k], lim["limit"]] for k, lim in spec["limits"].items()}
+    return res
+
+
 def run_stress(grays, depths, gt_t) -> dict:
     """The long-stress tool over the sequence tiled to ``STRESS_FRAMES``
     frames on the card, then split at ``STRESS_SPLIT`` (see the module
@@ -2222,6 +2281,27 @@ def main() -> int:
              "system holes: local BA iterated in at least half the events")
     _require(all(v <= lim for v, lim in s_holes["checks"].values()),
              f"system holes within the cell's limits: {s_holes['checks']}")
+
+    # ---- 6c. the same files through System's default pipeline (the cell
+    # rgbd.system_host_holes): the host Tracker with the local map ----
+    s_host_holes = run_system_host_holes()
+    print("system host holes " + json.dumps(s_host_holes) + f" ({card})", flush=True)
+    h = s_host_holes
+    _require(h["tracked"] == h["frames"] and h["resets"] == 0,
+             "system host holes tracked every frame")
+    _require(h["#lba_iterations"] > 0 and h["#tri_landmarks"] > 0
+             and h["#localmap_matches"] > 0,
+             "system host holes: local BA iterated, triangulation and the local "
+             "map worked")
+    _require(h["lba_launches"] == h["#kf_events"] > 0,
+             "system host holes: one K3 launch a keyframe event")
+    _require(2 * h["events_iterated"] >= h["#kf_events"],
+             "system host holes: local BA iterated in at least half the events")
+    _require(h["archived_keyframes"] == h["keyframes_inserted"] == h["#kf_events"] + 2,
+             f"system host holes archived every keyframe made: "
+             f"{h['archived_keyframes']} of {h['keyframes_inserted']}")
+    _require(all(v <= lim for v, lim in h["checks"].values()),
+             f"system host holes within the cell's limits: {h['checks']}")
 
     # ---- 7. the long-stress tool: 2160 frames, ring wrap, compaction,
     # no landmark dropped, split at 1200 ----

@@ -42,6 +42,7 @@ import torch
 from ..ops import detect
 from ..ops.detect import FAST_CIRCLE, NEG, _gaussian_kernel1d, fast_harris_blur
 from ..ops.index import stable_argsort, stable_topk
+from ..utils.logging import count_sync
 
 __all__ = ["FAST_CIRCLE", "_gaussian_kernel1d", "brief_pattern", "build_atlas",
            "orb_extract", "resize_weights"]
@@ -354,6 +355,8 @@ class TorchOrbExtractor:
 
     def extract(self, gray: np.ndarray):
         """gray uint8 [H,W] -> (px [S,2] f32, resp [S] f32, desc [S,32] u8,
-        valid [S] bool), S = n_slots."""
+        valid [S] bool), S = n_slots; counts its copies in and out on the
+        stage clock."""
         g = torch.as_tensor(gray).to(self.device)
+        count_sync(5)               # the image's copy in, the four out
         return tuple(x[0].cpu().numpy() for x in orb_extract(g[None], **self.kwargs))

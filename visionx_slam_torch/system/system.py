@@ -67,15 +67,16 @@ DISPARITY_BF = 1 / 1.425e-3
 # consumer asked for them, added to ``timings`` at the end of a run
 DECODE_AHEAD = "#decode_ahead"
 
-# what the scan's keyframe events did, and its steady tracked frames that
-# ran as a graph's replay and the graphs it captured, added to ``timings``
-# once a run of the scan pipeline: the scan's ``ScanCounters`` under these
-# keys
-SCAN_COUNTS = {"#kf_events": "kf_events", "#lba_iterations": "ba_iterations",
-               "#tri_landmarks": "tri_landmarks",
-               "#localmap_matches": "localmap_matches",
-               "#track_graph": "track_graph",
-               "#track_graph_captures": "track_graph_captures"}
+# what the keyframe events did, added to ``timings`` once a run of the scan
+# or the host pipeline: the ``ScanCounters`` of the scan or of the host
+# ``Tracker`` under these keys
+KF_COUNTS = {"#kf_events": "kf_events", "#lba_iterations": "ba_iterations",
+             "#tri_landmarks": "tri_landmarks",
+             "#localmap_matches": "localmap_matches"}
+# and the scan's steady tracked frames that ran as a graph's replay and the
+# graphs it captured
+SCAN_COUNTS = dict(KF_COUNTS, **{"#track_graph": "track_graph",
+                                 "#track_graph_captures": "track_graph_captures"})
 
 # ``summary["stage_timings"]``'s names of the stage clock's keys
 _TIMING_NAMES = {"gba": "global_ba", "scan": "scan_dispatch",
@@ -337,7 +338,12 @@ class System:
     keyframe event ``scan/kf`` (the event up to local BA) and ``scan/lba``
     (local BA), and ``scan/step`` (the rest of its step). The offline pipeline laps ``decode`` and
     ``offline_pipeline``, the host path ``decode``, ``extract`` and
-    ``track`` a frame."""
+    ``track`` a frame (spans ``track/upload``, the features' copies in,
+    then the Tracker's ``track/match``, ``/ransac``, ``/gn``, with the
+    local map ``/localmap``, on a keyframe event ``/kf`` and ``/lba``, and
+    ``track/step``, the rest of the frame) and, with ``run_global_ba``,
+    ``harvest`` between frames; both pipelines that track add the counts
+    ``KF_COUNTS``."""
 
     def __init__(self, cfg: SystemConfig, timings: dict | None = None):
         self.cfg = cfg
@@ -368,15 +374,17 @@ class System:
             self.extractor = TorchOrbExtractor(
                 n_features=cfg.n_features, resize_f32=cfg.orb_resize_f32,
                 device=self.device)
-        self.tracker = Tracker(self.cam, cfg.tracking, device=cfg.device)
+        self.tracker = Tracker(self.cam, cfg.tracking,
+                               kf_capacity=cfg.kf_capacity, device=cfg.device)
         self.results: list[FrameResult] = []
         self.loader_used = ""    # "native" or "python", once frames were read
         self._decode_s = 0.0     # seconds spent decoding (the worker threads' sum)
         self._decode_ahead = None  # a run's frames found decoded (Python loader)
         self._frame0 = 0         # id offset when resuming from a snapshot
-        # keyframes harvested at chunk boundaries of the scan path (the ring
-        # evicts; the archive keeps every keyframe so --run_global_ba can
-        # cover the full map, BASELINE config 4)
+        # keyframes harvested at chunk boundaries of the scan path and
+        # between frames of the host path (the ring evicts; the archive
+        # keeps every keyframe so --run_global_ba can cover the full map,
+        # BASELINE config 4)
         self._archive: dict = {}
 
     @property
@@ -514,13 +522,23 @@ class System:
 
     # ------------------------------------------------------------------
     def _run_host(self, entries) -> dict:
-        """Per-frame host state machine (reference-parity path)."""
+        """Per-frame host state machine (reference-parity path). With
+        ``run_global_ba`` the Tracker's ring is harvested into the archive
+        between frames (lapped as ``harvest``) once it has inserted
+        ``kf_capacity - 1`` keyframes since the last harvest (a frame
+        inserts at most two, so no keyframe is evicted unharvested), and
+        after the last frame. A reset of the Tracker wipes its map, and the
+        archive with it."""
         cfg = self.cfg
         dev = self.device
+        tracker = self.tracker
         jsonl = (JsonlWriter(os.path.join(cfg.output_dir, "frames.jsonl"))
                  if cfg.metrics_jsonl else None)
         clock = self._clock
         clock.begin("track")
+        reads0, resets = tracker.host_reads, tracker.resets
+        every = max(1, tracker.kf_capacity - 1)
+        harvested = tracker.kf_inserted
         t_start = time.perf_counter()
         frames = self._frames(entries)
         try:
@@ -531,8 +549,22 @@ class System:
                 d = sample_depth_at(px, valid, depth)
                 obs = FrameObs(*(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
                                  for x in (px, resp, desc, valid, d)))
-                res = self.tracker.process(fid, e.timestamp, gray, obs)
+                count_sync(len(obs))    # the copies in
+                clock.span("upload")
+                res = tracker.process(fid, e.timestamp, gray, obs)
+                clock.span("step")
                 clock.lap("track")
+                if tracker.resets != resets:
+                    resets, harvested = tracker.resets, tracker.kf_inserted
+                    if self._archive:
+                        log.warning("tracker reset at frame %d: the archive's %d "
+                                    "keyframes go with the map", fid,
+                                    len(self._archive))
+                        self._archive.clear()
+                if cfg.run_global_ba and tracker.kf_inserted - harvested >= every:
+                    harvest_keyframes(self._archive, tracker.ms)
+                    harvested = tracker.kf_inserted
+                    clock.lap("harvest")
                 if cfg.debug_nans and res.pose_T_cw is not None and not np.isfinite(
                         res.pose_T_cw).all():
                     raise FloatingPointError(f"non-finite pose in frame {fid}")
@@ -543,14 +575,22 @@ class System:
             frames.close()
             if jsonl:
                 jsonl.close()
+        if cfg.run_global_ba and tracker.kf_inserted > harvested:
+            harvest_keyframes(self._archive, tracker.ms)
+            clock.lap("harvest")
         wall = time.perf_counter() - t_start
         clock.begin("outputs")
+        stats = tracker.counters.stats(len(self.results))
+        count_sync()                # the counters' one read
+        stats["host_syncs"] = reads = tracker.host_reads - reads0
+        count_sync(reads)           # the Tracker's reads
 
         summary = self._write_outputs(entries, wall)
         summary["decode_time_s"] = self._decode_s
         summary["decode_ahead"] = self._decode_ahead
-        summary["host_reads_per_frame"] = (
-            self.tracker.host_reads / max(len(self.results), 1))
+        summary["host_reads_per_frame"] = reads / max(len(self.results), 1)
+        summary["tracker_stats"] = stats
+        self._counts = {key: stats[k] for key, k in KF_COUNTS.items()}
         log.info("host path: %.2f device reads per frame",
                  summary["host_reads_per_frame"])
         return self._finish(summary)

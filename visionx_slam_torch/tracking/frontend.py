@@ -6,10 +6,22 @@ INIT / TRACKING_GOOD / TRACKING_BAD / LOST state machine with two-frame
 initialization, PnP-first tracking with essential-matrix fallback,
 keyframe policy, depth/triangulated landmark creation, culling and local
 BA. Control flow lives on the host; every array computation is a stage from
-``stages.py`` / ``models/`` on the tracker's device. This is the parity and
-debug path (``--pipeline host``): it reads the device several times per
-frame and counts those reads in ``Tracker.host_reads``. The online scan
-(``scan_pipeline.py``) is the fast form of the same machine.
+``stages.py`` / ``models/`` on the tracker's device. This is ``System``'s
+default path (``--pipeline host``) and the parity and debug path: it reads
+the device several times per frame and counts those reads in
+``Tracker.host_reads``. The online scan (``scan_pipeline.py``) is the fast
+form of the same machine. With ``TrackingOptions.track_local_map`` a frame
+tracked by PnP against its keyframe is also tracked against the local map,
+as the scan does (``local_map.py``); off by default, where the path is the
+reference's.
+
+What the keyframe events did is counted in ``Tracker.counters``, a
+``ScanCounters`` as the scan's: ``kf_events`` (host), ``ba_iterations``,
+``tri_landmarks`` and ``localmap_matches`` (device scalars, which the
+Tracker never reads). On an active stage clock a frame ends the spans that
+the scan's step ends: ``localmap`` (the local map's search; its GN call
+ends ``gn``), on a keyframe event ``kf`` (the event up to local BA, the
+culling included) and ``lba`` (local BA and the read of its cost).
 
 Reference quirks deliberately reproduced:
 - the init parallax gate compares a PIXEL-mean parallax against a 1-degree
@@ -47,11 +59,14 @@ from ..models.local_ba import local_ba
 from ..ops.camera import CameraParams, backproject
 from ..ops.se3 import Pose, identity_pose, se3_compose, se3_from_Rt, se3_matrix
 from ..utils.config import TrackingOptions
+from ..utils.logging import span
+from . import local_map
 from . import mapstate as msl
 from . import stages
 from .mapstate import MapState
 from .scan_pipeline import (
     DEG1_RAD,
+    ScanCounters,
     frame_generator,
     insert_init_pair,
     insert_tracked_keyframe,
@@ -99,7 +114,14 @@ class Tracker:
         self.state = State.INIT
         self._dev = torch.device(self.device)
         self._ba_opts = tracking_ba_options(self.options)
+        # the local map: the ring's slots before the last keyframe, as many
+        # as local BA's window less one (the scan's ``W_LOCAL``)
+        self._w_local = min(max(1, self.options.ba_window_size), self.kf_capacity)
+        self._img_wh = (0, 0)
         self.host_reads = 0       # device-to-host reads made so far
+        self.counters = ScanCounters(self._dev)
+        self.kf_inserted = 0      # keyframes inserted so far (resets included)
+        self.resets = 0           # map wipes after TRACKING_BAD / LOST
         self._reset_episode()
 
     # ------------------------------------------------------------------
@@ -138,6 +160,7 @@ class Tracker:
             pose_T_cw=None,
             n_features=int(self._read(obs.valid.sum())[0]),
         )
+        self._img_wh = (gray.shape[1], gray.shape[0])
         just_initialized = False
 
         if self.state == State.INIT:
@@ -161,6 +184,7 @@ class Tracker:
         elif self.state in (State.TRACKING_BAD, State.LOST):
             # the reference consumes this frame in the reset handler
             self._reset_episode()
+            self.resets += 1
             self.state = State.INIT
             log.info("[ProcessFrame] Tracking %s. Trying to re-initialize...",
                      res.state.lower())
@@ -172,9 +196,12 @@ class Tracker:
                 self._cull_landmarks()
                 self._cull_keyframes(frame_id)
             if self.options.enable_local_ba:
+                span("kf")
                 self.ms, stats = local_ba(self.ms, self.cam, self._ba_opts)
                 self.host_reads += stats.host_reads
+                self.counters.ba_iterations += stats.iterations
                 res.ba_cost = self._read(stats.final_cost)[0]
+                span("lba")
                 # keep the tracker's notion of the current pose in sync
                 self.current_pose = msl.map_pose(self.ms, self.last_kf_slot)
 
@@ -261,7 +288,8 @@ class Tracker:
         cursor = int(self._read(self.ms.next_kf)[0])
         self.ms, slot1, slot2 = insert_init_pair(
             self.ms, self.cam, self.options, io, self.init_frame_id, obs,
-            frame_id, pose2, cursor)
+            frame_id, pose2, cursor, tally=self.counters.tri_landmarks)
+        self.kf_inserted += 2
         self.init_kf_slot = slot1
         self.last_kf_slot = slot2
         self.last_kf_frame_id = frame_id
@@ -345,12 +373,30 @@ class Tracker:
             log.warning("[TrackWithPnP] Invalid pose")
             return False
 
+        pose = sol.pose
+        if self.options.track_local_map:
+            span("step")    # the consensus read's wait, as in the scan
+            pose = self._track_local_map(obs, m, pts3d, valid, sol)
         self.last_parallax = parallax
         self.last_inliers = inliers
         res.n_inliers = inliers
         res.parallax = parallax
-        self._set_frame_pose(res, sol.pose)
+        self._set_frame_pose(res, pose)
         return True
+
+    def _track_local_map(self, obs, m, pts3d, valid, sol) -> Pose:
+        """The PnP pose refined on its inliers and the local map's matches
+        (``local_map.track_local_map``) over the window of ring slots
+        before the last keyframe, as the scan's step runs it; no read."""
+        bits, pop = matching.unpack_with_pop(obs.desc)
+        slot, n = self.last_kf_slot, self._w_local - 1
+        pose, n_local = local_map.track_local_map(
+            self.ms, self.cam, sol.pose, obs.px, obs.valid, bits, pop,
+            torch.where(valid[:, None], pts3d, 0.0), obs.px[m.idx],
+            sol.inlier_mask & valid, m.idx, self.ms.kf_feat_lm[slot],
+            slot - n, n, self._img_wh, self.options.max_reproj_error)
+        self.counters.localmap_matches += n_local
+        return pose
 
     def _track_last_frame(self, frame_id, obs, res) -> bool:
         lo = self.last_obs
@@ -429,7 +475,9 @@ class Tracker:
         slot = cursor % self.kf_capacity
         self.ms = insert_tracked_keyframe(
             self.ms, self.cam, self.options, obs, frame_id, self.current_pose,
-            self.last_kf_slot, slot)
+            self.last_kf_slot, slot, tally=self.counters.tri_landmarks)
+        self.counters.kf_events += 1
+        self.kf_inserted += 1
         self.last_kf_slot = slot
         self.last_kf_frame_id = frame_id
         res.is_keyframe = True

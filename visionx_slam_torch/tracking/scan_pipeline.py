@@ -155,6 +155,20 @@ class ScanCounters:
             return vals[0].tolist()
         return _flat64(*vals).tolist()
 
+    def stats(self, frames: int) -> dict:
+        """Every count, the device scalars read in one transfer, with the
+        run's ``frames``."""
+        ba_iterations, lm_culled, tri_landmarks, localmap_matches = torch.stack(
+            [self.ba_iterations, self.lm_culled, self.tri_landmarks,
+             self.localmap_matches]).tolist()
+        return dict(frames=frames, host_syncs=self.host_syncs,
+                    compactions=self.compactions, kf_events=self.kf_events,
+                    lba_kernel=self.lba_kernel, kf_culled=self.kf_culled,
+                    track_graph=self.track_graph,
+                    track_graph_captures=self.track_graph_captures,
+                    ba_iterations=ba_iterations, lm_culled=lm_culled,
+                    tri_landmarks=tri_landmarks, localmap_matches=localmap_matches)
+
 
 def _empty_obs(n: int, device) -> FrameObs:
     return FrameObs(
@@ -842,19 +856,6 @@ def _frame_out(recs: list, dev) -> FrameOut:
     )
 
 
-def _counter_stats(ctr: ScanCounters, frames: int) -> dict:
-    ba_iterations, lm_culled, tri_landmarks, localmap_matches = torch.stack(
-        [ctr.ba_iterations, ctr.lm_culled, ctr.tri_landmarks,
-         ctr.localmap_matches]).tolist()
-    return dict(frames=frames, host_syncs=ctr.host_syncs,
-                compactions=ctr.compactions, kf_events=ctr.kf_events,
-                lba_kernel=ctr.lba_kernel, kf_culled=ctr.kf_culled,
-                track_graph=ctr.track_graph,
-                track_graph_captures=ctr.track_graph_captures,
-                ba_iterations=ba_iterations, lm_culled=lm_culled,
-                tri_landmarks=tri_landmarks, localmap_matches=localmap_matches)
-
-
 def run_scan_pipeline(
     cam: CameraParams,
     images_u8,               # [T,H,W] uint8 (tensor or numpy)
@@ -892,7 +893,7 @@ def run_scan_pipeline(
                             stats_host[:T], stats_host[T:])
     out = _frame_out(recs, dev)
     if stats is not None:
-        stats.update(_counter_stats(ctr, T))
+        stats.update(ctr.stats(T))
     return st, out
 
 
@@ -957,7 +958,7 @@ def run_scan_pipeline_batched(
             step, initial_state(n_features_cap, kf_capacity, lm_capacity, dev),
             0, FrameObs(*(x[lo:hi] for x in obs)), bits[lo:hi], pop[lo:hi],
             stats_host[lo:hi], stats_host[B * T + lo:B * T + hi])
-        return st, _frame_out(recs, dev), _counter_stats(ctr, T)
+        return st, _frame_out(recs, dev), ctr.stats(T)
 
     sts, outs, lane_stats = zip(*(lane(b) for b in range(B)))
     out = FrameOut(*(torch.stack(x, dim=1) for x in zip(*outs)))

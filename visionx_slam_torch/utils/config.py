@@ -179,7 +179,7 @@ class SystemConfig:
     # build is validated statistically and on the default-config ATE)
     orb_resize_f32: bool = False
     metrics_jsonl: bool = True          # per-frame structured metrics
-    kf_capacity: int = 64               # keyframe ring slots (scan path)
+    kf_capacity: int = 64               # keyframe ring slots (scan and host paths)
     # viewer-replacement sinks (SURVEY.md L8): landmark cloud + keyframe
     # centers as PLY next to the npz snapshot; plot via cli.plot
     export_ply: bool = True
